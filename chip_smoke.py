@@ -11,15 +11,20 @@ run on any error:
 2. build: compile the support-count CUDA kernel for sm_90a from the
    checkout's source (into build/repro_torch/);
 3. kernel vs plain: the kernel must equal the plain PyTorch version bit for
-   bit at the engine's, the reconstruction's and ragged shapes; each shape
-   is timed (CUDA events) beside its bound;
+   bit at the engine's, the reconstruction's and ragged shapes, crossing
+   every fragment and tile edge of the MMA kernel; each shape is timed
+   beside its bound and, where B > 16, beside `torch._int_mm` on operands
+   unpacked to {0, 1} int8 beforehand (the library yardstick, which the
+   port never calls);
 4. the significance query: the `fused23` staging (lamp1 -> count2d ->
    ResultSet) on hapmap_dom_20 at 1,191 items, P = 8 miners, run on the
    card with the kernel (the main path, whose kernel launches are counted),
    on the card with the plain version, and on the CPU: all three must be
    identical and give the JAX package's values;
 5. the paper's full widths: mode `count` on hapmap_dom_20 (11,914 items)
-   and alz_rec_30 (250,120 items), kernel against plain version.
+   and alz_rec_30 (250,120 items), kernel against plain version, then once
+   more under the profiler for the device idle share and the kernel's
+   share of device time.
 
 The second-to-last line is a JSON object with the kernel's numbers; the
 last is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -38,10 +43,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks used by the bound: 3.35 TB/s of HBM3; POPC issues at 16
-#: per clock per SM on sm_90 (CUDA programming guide, throughput table)
+#: H100 SXM peaks used by the bound (NVIDIA's data sheet, dense): 3.35 TB/s
+#: of HBM3, and 1,979 TOP/s int8 on the tensor cores.  The kernel's
+#: AND+popcount runs as binary MMA, whose rate is not published; the int8
+#: rate stands in for it, counting each bit as one int8 multiply-add.  With
+#: it the bytes term is the larger at every main-path shape.
 HBM_BYTES_PER_S = 3.35e12
-POPC_PER_CLK_PER_SM = 16
+INT8_OPS_PER_S = 1.979e15
 
 #: the JAX package's values for the significance query (P-independent;
 #: tests/test_torch_slice.py re-derives them from JAX)
@@ -176,32 +184,48 @@ def _profile(fn):
     return out, _device_times(prof), wall
 
 
-def _kernel_device_ms(fn, iters: int = 20):
-    """Device time of one support_count kernel launch, from the profiler's
-    CUDA activity (None when the profiler saw no device time)."""
+def _device_ms(fn, iters: int = 20):
+    """Device time of one call of fn: all the CUDA activity the profiler
+    saw over `iters` calls, over `iters` (None when it saw none)."""
     _, dev, _ = _profile(lambda: [fn() for _ in range(iters)])
-    hits = [(n, us) for k, (n, us) in dev.items() if "support_count_kernel" in k]
-    if not hits:
+    if not dev:
         return None
-    n, us = hits[0]
-    return us / n / 1e3
+    return sum(us for _, us in dev.values()) / iters / 1e3
 
 
-def _bound(b: int, m: int, w: int, sm_count: int, clock_hz: float):
-    """(bound_ms, bound_by): popcounts over the POPC rate vs bytes over HBM."""
-    ops_s = b * m * w / (POPC_PER_CLK_PER_SM * sm_count * clock_hz)
+def _bound(b: int, m: int, w: int):
+    """(bound_ms, bound_by): bytes over HBM vs bit operations over the
+    int8 tensor rate (each input read once, S written once)."""
+    ops_s = 2 * b * m * 32 * w / INT8_OPS_PER_S
     bytes_s = (m * w + b * w + b * m) * 4 / HBM_BYTES_PER_S
-    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s > bytes_s else "bytes")
 
 
-def check_kernel(shapes, sm_count: int, clock_hz: float,
-                 profiled: int = 0) -> list[dict]:
+def _library(occ, db):
+    """(call, m_pad): one `torch._int_mm` over {0, 1} int8 operands unpacked
+    beforehand, with M padded by zero items to a multiple of 8 (as the call
+    requires on CUDA).  The yardstick only; the port never counts this way."""
+    import torch
+
+    from repro_torch.kernels.support_count.ref import unpack_bits_int8
+
+    m = db.shape[0]
+    m_pad = -(-m // 8) * 8
+    occ_u8 = unpack_bits_int8(occ)
+    db_u8 = torch.zeros((m_pad, occ_u8.shape[1]), dtype=torch.int8, device=db.device)
+    db_u8[:m] = unpack_bits_int8(db)
+    return (lambda: torch._int_mm(occ_u8, db_u8.t())), m_pad
+
+
+def check_kernel(shapes, profiled: int = 0) -> list[dict]:
     """Phase 3: the kernel against the plain version at each (B, M, W).
 
-    `ms`/`plain_ms` are CUDA-event times per call over back-to-back calls;
-    for the first `profiled` shapes `device_ms` is the kernel's own device
-    time from the profiler (back-to-back calls of a small kernel measure
-    the host's launch rate, not the kernel)."""
+    `ms`/`plain_ms`/`library_call_ms` are CUDA-event times per call over
+    back-to-back calls; for the first `profiled` shapes `device_ms` and
+    `library_ms` are the device time per call from the profiler
+    (back-to-back calls of a small kernel measure the host's launch rate,
+    not the kernel).  The share of the bound is taken against the device
+    time where there is one."""
     import torch
 
     from repro_torch.kernels.support_count import kernel
@@ -223,19 +247,36 @@ def check_kernel(shapes, sm_count: int, clock_hz: float,
         mismatches = int((diff != 0).sum())
         max_err = int(diff.max()) if diff.numel() else 0
         big = b * m * w > 1 << 22
+        prof = i < profiled
         ms = _time_ms(lambda: kernel.support_count_cuda(occ, db), 20 if big else 100)
         plain_ms = _time_ms(lambda: support_count_ref(occ, db), 3 if big else 10, 1)
-        device_ms = (_kernel_device_ms(lambda: kernel.support_count_cuda(occ, db))
-                     if i < profiled else None)
-        bound_ms, bound_by = _bound(b, m, w, sm_count, clock_hz)
+        device_ms = (_device_ms(lambda: kernel.support_count_cuda(occ, db))
+                     if prof else None)
+        lib_call_ms = library_ms = m_pad = None
+        if b > 16:
+            lib, m_pad = _library(occ, db)
+            if not torch.equal(lib()[:, :m], want):
+                raise AssertionError(f"torch._int_mm != plain version at {(b, m, w)}")
+            lib_call_ms = _time_ms(lib, 20 if big else 100)
+            library_ms = _device_ms(lib) if prof else None
+            del lib
+        bound_ms, bound_by = _bound(b, m, w)
+        share = bound_ms / (device_ms if device_ms is not None else ms)
         row = dict(shape=[b, m, w], mismatches=mismatches, max_abs_err=max_err,
                    ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   library_ms=library_ms, library_call_ms=lib_call_ms,
+                   library_m_pad=m_pad, bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=share)
         rows.append(row)
-        dev_txt = "" if device_ms is None else f" (device {device_ms:.4f} ms)"
+        dev_txt = "" if device_ms is None else f" (device {device_ms:.4f})"
+        lib_txt = ("" if lib_call_ms is None else
+                   f"  library {lib_call_ms:.4f}"
+                   + ("" if library_ms is None else f" (device {library_ms:.4f})")
+                   + f" [M padded to {m_pad}]")
         print(f"  kernel {b:>4} x {m:>6} x {w:>3}: mismatches {mismatches} "
-              f"max_abs_err {max_err}  kernel {ms:.4f} ms{dev_txt}  plain "
-              f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"max_abs_err {max_err}  kernel {ms:.4f}{dev_txt}  plain "
+              f"{plain_ms:.4f}{lib_txt}  bound {bound_ms:.5f} ({bound_by}) "
+              f"share {100 * share:.1f}%  [ms]", flush=True)
         if mismatches:
             raise AssertionError(f"kernel != plain version at {(b, m, w)}")
     return rows
@@ -280,19 +321,28 @@ def main() -> int:
     lib = kernel.build()
     print(f"[2] built {lib.relative_to(ROOT) if lib.is_relative_to(ROOT) else lib} "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
-    print(kernel.build_log().strip(), flush=True)
+    log = kernel.build_log().strip()
+    print(log, flush=True)
+    if log and "0 bytes spill stores, 0 bytes spill loads" not in log:
+        raise AssertionError("the kernel spills registers (see ptxas above)")
 
     # ---- 3. kernel vs plain version, on the card
     main_shapes = [(128, 1191, 22), (512, 1191, 22)]       # phase 4's shapes
-    full_shapes = [(128, 12288, 22), (128, 253952, 12), (512, 11914, 22)]
+    # (1024, 11916, 22): as 11,914 items, but every row of S starts on a
+    # 16-byte boundary
+    full_shapes = [(128, 12288, 22), (128, 253952, 12), (512, 11914, 22),
+                   (1024, 11914, 22), (1024, 11916, 22)]
     ragged = [(b, m, w) for b in (1, 7, 33) for m in (1, 4095, 4097)
               for w in (1, 12, 23, 400)]
+    # the MMA kernel's edges: one and two row fragments, a second row block;
+    # M below one 64-item tile and astride one (4100: the 16-byte store
+    # path); W at, just past and at twice the 8-word K step
+    edges = [(b, m, w) for b in (16, 17, 129) for m in (65, 4100)
+             for w in (8, 9, 16, 24)]
     print("[3] kernel vs plain version (bit-exact); per-call times by CUDA "
-          "events, kernel device time by the profiler", flush=True)
-    rows = check_kernel(main_shapes + full_shapes + ragged,
-                        props.multi_processor_count, clock_mhz * 1e6,
+          "events, device times by the profiler", flush=True)
+    rows = check_kernel(main_shapes + full_shapes + ragged + edges,
                         profiled=len(main_shapes) + len(full_shapes))
-    print("  library_ms: no single PyTorch call computes a popcount-GEMM", flush=True)
 
     # ---- 4. the significance query: cuda+kernel, cuda+plain, cpu
     db_bits, labels, _, spec = paper_problem_packed("hapmap_dom_20", scale_items=0.1)
@@ -365,7 +415,7 @@ def main() -> int:
 
     # ---- 5. the paper's full widths, mode count
     print("[5] full widths, mode count, P = 8 (in turns: kernel, plain, plain, "
-          "kernel)", flush=True)
+          "kernel; then kernel under the profiler)", flush=True)
     for name, min_sup, closed in FULL_WIDTH:
         bits, lab, _, sp = paper_problem_packed(name)
         pk = pack_problem_from_bits(bits, lab, n=sp.n_transactions, device="cuda")
@@ -376,6 +426,7 @@ def main() -> int:
             out, wall = _wall(lambda: mine(packed=pk, mode="count",
                                            min_sup=min_sup, cfg=cfg, n_miners=8))
             outs.setdefault(impl, out)
+            last_wall = wall
             bad = mine_output_diffs(outs[impl], out)
             if bad:
                 raise AssertionError(f"{name} ({impl}): runs differ in {bad}")
@@ -389,6 +440,24 @@ def main() -> int:
         if int(outs["auto"].hist.sum()) != closed:
             raise AssertionError(f"{name}: {int(outs['auto'].hist.sum())} closed "
                                  f"sets, expected {closed}")
+        cfg = EngineConfig(kernel_impl="auto", max_steps=4000)
+        out, dev, wall_p = _profile(lambda: mine(packed=pk, mode="count",
+                                                 min_sup=min_sup, cfg=cfg, n_miners=8))
+        bad = mine_output_diffs(outs["auto"], out)
+        if bad:
+            raise AssertionError(f"{name} (profiled): runs differ in {bad}")
+        if dev:
+            busy = sum(us for _, us in dev.values()) / 1e6
+            sc = sum(us for k, (_, us) in dev.items()
+                     if "support_count_kernel" in k) / 1e6
+            print(f"  profile of {name} (kernel): device busy {busy * 1e3:.3f} ms = "
+                  f"{100 * busy / last_wall:.2f}% of the last unprofiled kernel "
+                  f"run's {last_wall:.3f} s (idle {100 * (1 - busy / last_wall):.2f}%); "
+                  f"support_count {sc * 1e3:.3f} ms = {100 * sc / busy:.2f}% of "
+                  f"device time; profiled wall {wall_p:.3f} s", flush=True)
+        else:
+            print(f"  profile of {name}: the profiler saw no device time "
+                  "(not measured)", flush=True)
 
     head = rows[0]  # the main path's engine shape
     print(json.dumps({"kernels": [{
@@ -405,9 +474,13 @@ def main() -> int:
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
-        "library_ms": None,
+        # torch._int_mm on operands unpacked beforehand, device time
+        "library_ms": head["library_ms"],
+        "library_m_pad": head["library_m_pad"],
         "shape": head["shape"],
-        "shapes": rows,
+        # the engine's, reconstruction's and full-width shapes (profiled)
+        "shapes": [r for r in rows if r["device_ms"] is not None],
+        "shapes_checked": len(rows),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -38,8 +38,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_BLOCK_B = 8           # occ rows per block (kBlockB in the source)
-_MAX_GRID_Y = 65535    # CUDA's limit on gridDim.y
+_ALIGN = 16            # bytes: the kernel's cp.async copies and vector stores
 
 #: kernel launches made through `support_count_cuda` since the last reset
 launches = 0
@@ -120,7 +119,8 @@ def _load():
 
 def support_count_cuda(occ: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """occ [B, W] int32, db [M, W] int32 (item-major), both contiguous on
-    one CUDA device -> S [B, M] int32, one kernel launch."""
+    one CUDA device, each starting on a 16-byte boundary -> S [B, M] int32,
+    one kernel launch."""
     global launches
     for name, t in (("occ", occ), ("db", db)):
         if t.device.type != "cuda":
@@ -130,14 +130,17 @@ def support_count_cuda(occ: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
                 f"support_count_cuda: {name} must be a contiguous 2-D int32 "
                 f"tensor, got {t.dtype} {tuple(t.shape)}"
             )
+        if t.data_ptr() % _ALIGN:
+            raise ValueError(
+                f"support_count_cuda: {name} does not start on a {_ALIGN}-byte "
+                f"boundary (a view at an offset?); pass a fresh or whole tensor"
+            )
     if occ.device != db.device:
         raise ValueError(f"occ on {occ.device} but db on {db.device}")
     b, w = occ.shape
     m, w2 = db.shape
     if w != w2:
         raise ValueError(f"word widths differ: occ {tuple(occ.shape)}, db {tuple(db.shape)}")
-    if -(-b // _BLOCK_B) > _MAX_GRID_Y:
-        raise ValueError(f"B={b} exceeds the kernel's grid ({_BLOCK_B * _MAX_GRID_Y} rows)")
     out = torch.empty((b, m), dtype=torch.int32, device=occ.device)
     if b == 0 or m == 0:
         return out

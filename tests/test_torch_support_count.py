@@ -2,9 +2,9 @@
 against the JAX package's (repro.kernels.support_count.ops).
 
 Popcount sums are exact integers, so every comparison is bit-exact.  On the
-CPU the port runs its plain PyTorch version; the CUDA kernel case runs only
-where a card is present (chip_smoke.py holds the kernel against the plain
-version at the engine's shapes on the card).
+CPU the port runs its plain PyTorch version; the CUDA kernel cases (marked
+`cuda`) run only where a card is present (chip_smoke.py holds the kernel
+against the plain version at the engine's shapes on the card).
 """
 
 import numpy as np
@@ -12,7 +12,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.kernels.support_count.ops import support_counts as jax_support_counts  # noqa: E402
 from repro_torch.core.bitmap import (  # noqa: E402
     BitmapLayout,
     popcount32,
@@ -20,7 +19,10 @@ from repro_torch.core.bitmap import (  # noqa: E402
     words_to_tensor,
 )
 from repro_torch.kernels.support_count import kernel, ops  # noqa: E402
-from repro_torch.kernels.support_count.ref import support_count_ref  # noqa: E402
+from repro_torch.kernels.support_count.ref import (  # noqa: E402
+    support_count_ref,
+    unpack_bits_int8,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -31,6 +33,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def jax_support_counts(occ, db):
+    """The JAX package's dispatch, imported at use: the card's machine has no
+    JAX, and the `cuda` cases there must still collect."""
+    from repro.kernels.support_count.ops import support_counts
+
+    return support_counts(occ, db)
 
 
 def rand_words(rng, shape):
@@ -118,12 +128,46 @@ def test_resolve_impl_and_no_fallback():
     assert kernel.launches == before
 
 
-def test_cuda_kernel_matches_ref():
-    """The CUDA kernel == the plain version, bit for bit (needs a card)."""
+@pytest.mark.parametrize("w", [1, 7, 8, 9, 23])
+def test_int_mm_over_unpacked_bits(w):
+    """The library yardstick chip_smoke.py times: {0, 1} int8 rows from
+    `unpack_bits_int8`, one `torch._int_mm` (B > 16, M a multiple of 8, as
+    the call needs on CUDA) == the plain version == the JAX dispatch."""
+    rng = np.random.default_rng(w)
+    occ = rand_words(rng, (24, w))
+    db = rand_words(rng, (40, w))
+    occ[0] = 0xFFFFFFFF
+    occ[1, 0] = 0x80000000
+    db[3] = 0xFFFFFFFF
+    occ_t, db_t = words_to_tensor(occ, "cpu"), words_to_tensor(db, "cpu")
+    bits = unpack_bits_int8(db_t)
+    assert bits.dtype == torch.int8 and bits.shape == (40, 32 * w)
+    want_bits = np.unpackbits(db.view(np.uint8), axis=1, bitorder="little")
+    np.testing.assert_array_equal(bits.numpy(), want_bits)
+    got = torch._int_mm(unpack_bits_int8(occ_t), bits.t())
+    assert got.dtype == torch.int32
+    assert torch.equal(got, support_count_ref(occ_t, db_t))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_support_counts(occ, db)))
+
+
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_ref():
+    """The CUDA kernel == the plain version, bit for bit (needs a card), at
+    the MMA kernel's edges: one and two 16-row fragments and a second row
+    block (B), a tile of 64 items and astride one (M; 4100 takes the
+    16-byte store path), W at, past and twice the 8-word K step, and past
+    the widest resident width (400: staged in K chunks)."""
+    _need_card()
     g = torch.Generator(device="cuda").manual_seed(0)
-    for b, m, w in [(1, 1, 1), (7, 4095, 23), (33, 4097, 400), (128, 1191, 22)]:
+    shapes = [(1, 1, 1), (7, 4095, 23), (33, 4097, 400), (128, 1191, 22)]
+    shapes += [(b, m, w) for b in (16, 17, 129, 512) for m in (63, 65, 4100)
+               for w in (8, 9, 16, 24, 400)]
+    for b, m, w in shapes:
         occ = torch.randint(-2**31, 2**31, (b, w), dtype=torch.int32,
                             device="cuda", generator=g)
         db = torch.randint(-2**31, 2**31, (m, w), dtype=torch.int32,
@@ -131,3 +175,18 @@ def test_cuda_kernel_matches_ref():
         got = kernel.support_count_cuda(occ, db)
         torch.cuda.synchronize()
         assert torch.equal(got, support_count_ref(occ, db)), (b, m, w)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_misaligned_db():
+    """A view that does not start on a 16-byte boundary (db[1:] with W odd)
+    is refused by the wrapper, before any launch."""
+    _need_card()
+    occ = torch.ones((4, 5), dtype=torch.int32, device="cuda")
+    db = torch.ones((9, 5), dtype=torch.int32, device="cuda")
+    view = db[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16
+    before = kernel.launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        kernel.support_count_cuda(occ, view)
+    assert kernel.launches == before
