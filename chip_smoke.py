@@ -5,26 +5,33 @@
 
 Needs one CUDA card, `nvcc` (PATH or /usr/local/cuda/bin) and the checkout's
 `src/`; it exits non-zero without them.  Phases, each of which fails the
-run on any error:
+run on any error (each prints its wall time):
 
 1. environment: the card's name and power limit (nvidia-smi);
 2. build: compile the support-count CUDA kernel for sm_90a from the
    checkout's source (into build/repro_torch/);
 3. kernel vs plain: the kernel must equal the plain PyTorch version bit for
-   bit at the engine's, the reconstruction's and ragged shapes, crossing
-   every fragment and tile edge of the MMA kernel; each shape is timed
-   beside its bound and, where B > 16, beside `torch._int_mm` on operands
-   unpacked to {0, 1} int8 beforehand (the library yardstick, which the
-   port never calls);
-4. the significance query: the `fused23` staging (lamp1 -> count2d ->
-   ResultSet) on hapmap_dom_20 at 1,191 items, P = 8 miners, run on the
-   card with the kernel (the main path, whose kernel launches are counted),
-   on the card with the plain version, and on the CPU: all three must be
-   identical and give the JAX package's values;
+   bit at the engine's shapes (exact and as the session's shape buckets pad
+   them), the reconstruction's and ragged shapes, crossing every fragment
+   and tile edge of the MMA kernel; each shape is timed beside its bound
+   and beside one PyTorch matmul on operands unpacked to {0, 1}
+   beforehand (`torch._int_mm` where B > 16, else a float16 or float32
+   `torch.mm`: the library yardstick, which the port never calls);
+4. the session API (`repro_torch.api`) on hapmap_dom_20 at 1,191 items,
+   P = 8 miners, the Dataset packed once per device:
+   (a) `fused23` with Fisher's test, cold then warm (the warm run builds no
+       program, and its kernel launches are the main path's count),
+   (b) `three_phase`, Fisher, (c) `fused23` with chi2 — each of (a)-(c)
+       with the kernel, with the plain version on the card and on the CPU,
+       all identical — and (d) the top-10 query with the kernel; every
+       query's values equal the JAX package's;
 5. the paper's full widths: mode `count` on hapmap_dom_20 (11,914 items)
    and alz_rec_30 (250,120 items), kernel against plain version, then once
-   more under the profiler for the device idle share and the kernel's
-   share of device time.
+   more under the profiler; and the closed-frequent query through the
+   session on both, kernel against plain version, equal to the JAX
+   package's patterns;
+and, after them, the kernel against the plain version at every shape
+phases 4-5 launched that phase 3 did not check (3b).
 
 The second-to-last line is a JSON object with the kernel's numbers; the
 last is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -32,7 +39,9 @@ last is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -51,58 +60,61 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 
-#: the JAX package's values for the significance query (P-independent;
-#: tests/test_torch_slice.py re-derives them from JAX)
-QUERY_EXPECT = dict(lambda_final=8, min_sup=7, correction_factor=5140,
-                    n_significant=623)
-#: closed sets at the paper's full widths (BENCH_mining.json paper_scale)
-FULL_WIDTH = (("hapmap_dom_20", 625, 204), ("alz_rec_30", 347, 295))
+#: phase 4's queries on hapmap_dom_20 at 1,191 items: (pipeline or "topk",
+#: statistic) and the JAX package's values, which are P-independent
+#: (tests/test_torch_slice.py re-derives them from JAX); results_sha256 is
+#: the first 16 hex digits of the SHA-256 of `ResultSet.to_json()`, so it
+#: pins every pattern and its float64 P- and q-value
+QUERY_EXPECT = {
+    "a": (("fused23", "fisher"), dict(
+        lambda_final=8, min_sup=7, correction_factor=5140, n_significant=623,
+        patterns=623, results_sha256="7307b10193e412a9")),
+    "b": (("three_phase", "fisher"), dict(
+        lambda_final=8, min_sup=7, correction_factor=5140, n_significant=623,
+        patterns=623, results_sha256="7307b10193e412a9")),
+    "c": (("fused23", "chi2"), dict(
+        lambda_final=6, min_sup=5, correction_factor=7854, n_significant=858,
+        patterns=858, results_sha256="0b11c151a1ce56f5")),
+    "d": (("topk", "fisher"), dict(
+        lambda_final=0, min_sup=1, correction_factor=1, n_significant=10,
+        patterns=10, delta=9.313991773413716e-33,
+        results_sha256="64adb364aa5143f9")),
+}
+#: top-k query (d)'s k
+TOPK = 10
+#: the paper's full widths: (problem, min_sup, closed sets, results_sha256
+#: of the closed-frequent query), from the JAX package
+#: (tests/test_torch_slice.py)
+FULL_WIDTH = (("hapmap_dom_20", 625, 204, "8df55e0bdbccbfc5"),
+              ("alz_rec_30", 347, 295, "3f2aa2ce5df4614b"))
 
 
-def fused23(packed, *, alpha: float = 0.05, n_miners: int = 8, cfg=None,
-            statistic: str = "fisher", min_sup_floor: int = 1) -> dict:
-    """The `fused23` LAMP staging (repro.api.session._pipeline_fused23) over
-    the port's engine: lamp1 -> count2d, two traversals; the 2-D histogram
-    gives the correction factor and the significant count, and the
-    alpha-level records are filtered on the host at the exact delta."""
-    from repro_torch.core.engine import EngineConfig, mine
-    from repro_torch.results import build_result_set
-    from repro_torch.stats import get_statistic
+def make_query(tag: str):
+    """Phase 4's query object for `tag` (a key of QUERY_EXPECT)."""
+    from repro_torch.api import SignificantPatternQuery, TopKSignificantQuery
 
-    if cfg is None:
-        cfg = EngineConfig(out_cap=4096)  # the JAX RuntimeConfig default
-    stat = get_statistic(statistic)
-    ph1 = mine(packed=packed, mode="lamp1", alpha=alpha, cfg=cfg,
-               n_miners=n_miners, statistic=statistic)
-    min_sup = max(ph1.lam_final - 1, min_sup_floor)
-    n, n_pos = packed.n, packed.n_pos
-    ph2 = mine(packed=packed, mode="count2d", min_sup=min_sup, delta=alpha,
-               alpha=alpha, cfg=cfg, n_miners=n_miners, statistic=statistic)
-    h2 = ph2.hist2d
-    sups_grid = np.arange(n + 1)
-    mask = (h2 > 0) & (sups_grid[:, None] >= min_sup)
-    k = int(h2[mask].sum())
-    delta = alpha / max(k, 1)
-    xs, ns = np.nonzero(mask)
-    pv = stat.pvalue(xs, ns, n, n_pos) if len(xs) else np.zeros(0)
-    sig_mask = pv <= delta
-    n_sig = int(h2[xs[sig_mask], ns[sig_mask]].sum()) if len(xs) else 0
-    occ, sup, pos_sup = ph2.sig_occ, ph2.sig_sup, ph2.sig_pos_sup
-    # the root closed set never rides the device buffers: append it exactly
-    # when the 2-D histogram counted it as significant
-    if (n >= min_sup and packed.has_labels
-            and float(stat.pvalue(n, n_pos, n, n_pos)[0]) <= delta):
-        occ = np.concatenate([occ, packed.occ0[None, :]], axis=0)
-        sup = np.concatenate([sup, [n]])
-        pos_sup = np.concatenate([pos_sup, [n_pos]])
-    results = build_result_set(
-        occ, sup, pos_sup, packed.db_bits, n=n, n_pos=n_pos, alpha=alpha,
-        min_sup=min_sup, correction_factor=k, delta=delta, filter_host=True,
-        dropped=ph2.emit_dropped, statistic=statistic, device=packed.device,
-    )
-    return dict(phases=(ph1, ph2), lambda_final=ph1.lam_final, min_sup=min_sup,
-                correction_factor=k, delta=delta, n_significant=n_sig,
-                results=results)
+    (pipeline, statistic), _ = QUERY_EXPECT[tag]
+    if pipeline == "topk":
+        return TopKSignificantQuery(k=TOPK, statistic=statistic)
+    return SignificantPatternQuery(pipeline=pipeline, statistic=statistic)
+
+
+def results_sha256(results) -> str:
+    return hashlib.sha256(results.to_json().encode()).hexdigest()[:16]
+
+
+def query_values(report) -> dict:
+    """The values of a MineReport that QUERY_EXPECT / FULL_WIDTH pin."""
+    return dict(lambda_final=report.lambda_final, min_sup=report.min_sup,
+                correction_factor=report.correction_factor,
+                n_significant=report.n_significant, patterns=len(report.results),
+                delta=report.delta, results_sha256=results_sha256(report.results))
+
+
+def expect_diffs(report, expect: dict) -> list[str]:
+    got = query_values(report)
+    return [f"{k}={got[k]!r} (expected {v!r})" for k, v in expect.items()
+            if got[k] != v]
 
 
 def mine_output_diffs(a, b) -> list[str]:
@@ -121,15 +133,34 @@ def mine_output_diffs(a, b) -> list[str]:
     return bad
 
 
-def query_diffs(a: dict, b: dict) -> list[str]:
-    """Fields in which two fused23 reports differ (ResultSet included)."""
-    bad = [f for f in ("lambda_final", "min_sup", "correction_factor", "delta",
-                       "n_significant") if a[f] != b[f]]
-    for i, (x, y) in enumerate(zip(a["phases"], b["phases"])):
-        bad += [f"phase{i + 1}.{f}" for f in mine_output_diffs(x, y)]
-    ra, rb = a["results"], b["results"]
-    if ra != rb:
-        bad.append("results")
+def _same(x, y) -> bool:
+    return x == y or (isinstance(x, float) and isinstance(y, float)
+                      and math.isnan(x) and math.isnan(y))
+
+
+#: PhaseReport fields that must agree between runs (walls, build times,
+#: cache hits and the resolved kernel differ by design)
+PHASE_FIELDS = ("mode", "supersteps", "lam_final", "n_nodes", "steals",
+                "steal_rounds", "emit_dropped", "item_tile", "n_item_tiles")
+REPORT_FIELDS = ("dataset", "pipeline", "alpha", "lambda_final", "min_sup",
+                 "correction_factor", "delta", "n_significant", "statistic",
+                 "query", "partial", "ckpt_path")
+
+
+def report_diffs(a, b) -> list[str]:
+    """Fields in which two MineReports differ: every report field but the
+    wall time, every phase's fields and raw output, and the ResultSet by
+    its exports (which carry each float64 P/q-value exactly)."""
+    bad = [f for f in REPORT_FIELDS if not _same(getattr(a, f), getattr(b, f))]
+    if len(a.phases) != len(b.phases):
+        bad.append("len(phases)")
+    for i, (x, y) in enumerate(zip(a.phases, b.phases)):
+        bad += [f"phase{i + 1}.{f}" for f in PHASE_FIELDS
+                if getattr(x, f) != getattr(y, f)]
+        bad += [f"phase{i + 1}.{f}" for f in mine_output_diffs(x.output, y.output)]
+    ra, rb = a.results, b.results
+    if (ra.complete, ra.truncated) != (rb.complete, rb.truncated):
+        bad.append("results.complete")
     if ra.to_tsv() != rb.to_tsv() or ra.to_json() != rb.to_json():
         bad.append("results.export")
     return bad
@@ -160,12 +191,14 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def _device_times(prof) -> dict[str, tuple[int, float]]:
     """{kernel name: (launches, device us)} of the CUDA activity a
-    torch.profiler run recorded ({} when it saw no device time)."""
+    torch.profiler run recorded ({} when it saw no device time).  The
+    device-side ranges of host annotations (`record_function` spans) are
+    not activity of their own and are left out."""
     from torch.autograd import DeviceType
 
     out = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -184,13 +217,21 @@ def _profile(fn):
     return out, _device_times(prof), wall
 
 
-def _device_ms(fn, iters: int = 20):
+def _device_ms(fn, kernel: str | None = None, iters: int = 20):
     """Device time of one call of fn: all the CUDA activity the profiler
-    saw over `iters` calls, over `iters` (None when it saw none)."""
+    saw over `iters` calls, over `iters`; None when the profile recorded
+    fewer launches than were made (of `kernel`, by name, or else fewer
+    device activities than calls)."""
+    import torch
+
+    torch.cuda.synchronize()
     _, dev, _ = _profile(lambda: [fn() for _ in range(iters)])
-    if not dev:
-        return None
-    return sum(us for _, us in dev.values()) / iters / 1e3
+    seen = sum(n for k, (n, _) in dev.items() if kernel is None or kernel in k)
+    if seen == iters if kernel is not None else seen >= iters:
+        return sum(us for _, us in dev.values()) / iters / 1e3
+    print(f"    (the profiler saw {seen} of {iters} launches: not measured)",
+          flush=True)
+    return None
 
 
 def _bound(b: int, m: int, w: int):
@@ -202,19 +243,28 @@ def _bound(b: int, m: int, w: int):
 
 
 def _library(occ, db):
-    """(call, m_pad): one `torch._int_mm` over {0, 1} int8 operands unpacked
-    beforehand, with M padded by zero items to a multiple of 8 (as the call
-    requires on CUDA).  The yardstick only; the port never counts this way."""
+    """(call, m_pad, name): one PyTorch matmul over `occ` and the database
+    unpacked to {0, 1} beforehand — `torch._int_mm` in int8 with M padded by
+    zero items to a multiple of 8, as that call requires on CUDA, where
+    B > 16 (its other limit); below that a float16 `torch.mm` where every
+    count, at most 32 W <= 2,048, is exact in float16, else float32.  The
+    yardstick only; the port never counts this way."""
     import torch
 
     from repro_torch.kernels.support_count.ref import unpack_bits_int8
 
-    m = db.shape[0]
-    m_pad = -(-m // 8) * 8
-    occ_u8 = unpack_bits_int8(occ)
-    db_u8 = torch.zeros((m_pad, occ_u8.shape[1]), dtype=torch.int8, device=db.device)
-    db_u8[:m] = unpack_bits_int8(db)
-    return (lambda: torch._int_mm(occ_u8, db_u8.t())), m_pad
+    b, m = occ.shape[0], db.shape[0]
+    if b > 16:
+        m_pad = -(-m // 8) * 8
+        occ_u8 = unpack_bits_int8(occ)
+        db_u8 = torch.zeros((m_pad, occ_u8.shape[1]), dtype=torch.int8,
+                            device=db.device)
+        db_u8[:m] = unpack_bits_int8(db)
+        return (lambda: torch._int_mm(occ_u8, db_u8.t())), m_pad, "_int_mm"
+    dtype = torch.float16 if 32 * occ.shape[1] <= 2048 else torch.float32
+    occ_f = unpack_bits_int8(occ).to(dtype)
+    db_f = unpack_bits_int8(db).to(dtype)
+    return (lambda: torch.mm(occ_f, db_f.t())), m, f"mm/{str(dtype)[6:]}"
 
 
 def check_kernel(shapes, profiled: int = 0) -> list[dict]:
@@ -250,29 +300,27 @@ def check_kernel(shapes, profiled: int = 0) -> list[dict]:
         prof = i < profiled
         ms = _time_ms(lambda: kernel.support_count_cuda(occ, db), 20 if big else 100)
         plain_ms = _time_ms(lambda: support_count_ref(occ, db), 3 if big else 10, 1)
-        device_ms = (_device_ms(lambda: kernel.support_count_cuda(occ, db))
-                     if prof else None)
-        lib_call_ms = library_ms = m_pad = None
-        if b > 16:
-            lib, m_pad = _library(occ, db)
-            if not torch.equal(lib()[:, :m], want):
-                raise AssertionError(f"torch._int_mm != plain version at {(b, m, w)}")
-            lib_call_ms = _time_ms(lib, 20 if big else 100)
-            library_ms = _device_ms(lib) if prof else None
-            del lib
+        device_ms = (_device_ms(lambda: kernel.support_count_cuda(occ, db),
+                                "support_count_kernel") if prof else None)
+        lib, m_pad, lib_name = _library(occ, db)
+        if not torch.equal(lib()[:, :m].to(torch.int32), want):
+            raise AssertionError(f"library {lib_name} != plain version at {(b, m, w)}")
+        lib_call_ms = _time_ms(lib, 20 if big else 100)
+        library_ms = _device_ms(lib) if prof else None
+        del lib
         bound_ms, bound_by = _bound(b, m, w)
         share = bound_ms / (device_ms if device_ms is not None else ms)
         row = dict(shape=[b, m, w], mismatches=mismatches, max_abs_err=max_err,
                    ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                    library_ms=library_ms, library_call_ms=lib_call_ms,
-                   library_m_pad=m_pad, bound_ms=bound_ms, bound_by=bound_by,
+                   library=lib_name, library_m_pad=m_pad, bound_ms=bound_ms,
+                   bound_by=bound_by,
                    share_of_bound=share)
         rows.append(row)
         dev_txt = "" if device_ms is None else f" (device {device_ms:.4f})"
-        lib_txt = ("" if lib_call_ms is None else
-                   f"  library {lib_call_ms:.4f}"
+        lib_txt = (f"  library {lib_name} {lib_call_ms:.4f}"
                    + ("" if library_ms is None else f" (device {library_ms:.4f})")
-                   + f" [M padded to {m_pad}]")
+                   + ("" if m_pad == m else f" [M padded to {m_pad}]"))
         print(f"  kernel {b:>4} x {m:>6} x {w:>3}: mismatches {mismatches} "
               f"max_abs_err {max_err}  kernel {ms:.4f}{dev_txt}  plain "
               f"{plain_ms:.4f}{lib_txt}  bound {bound_ms:.5f} ({bound_by}) "
@@ -280,6 +328,27 @@ def check_kernel(shapes, profiled: int = 0) -> list[dict]:
         if mismatches:
             raise AssertionError(f"kernel != plain version at {(b, m, w)}")
     return rows
+
+
+def check_kernel_in_child(shapes) -> list[dict]:
+    """`check_kernel(shapes)`, all profiled, in a fresh process of this
+    script.  Late in a run, after phase 4's long profile, the profiler was
+    seen to record 3 of 20 launches per session, so these shapes are
+    profiled in a process whose profiler has not run yet, as phase 3's
+    are.  The child's lines are echoed; its last line holds the rows.  A
+    kernel error in the child fails the run."""
+    if not shapes:
+        return []
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--check-shapes",
+         json.dumps([list(s) for s in shapes])],
+        capture_output=True, text=True, timeout=900,
+    )
+    lines = proc.stdout.rstrip("\n").splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"3b child failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
 
 
 def _wall(fn):
@@ -292,6 +361,36 @@ def _wall(fn):
     return out, time.perf_counter() - t0
 
 
+def _counted(fn):
+    """(result, wall s, kernel launches, launches by (B, M, W)) of fn(),
+    the kernel's counters set to 0 just before it."""
+    from repro_torch.kernels.support_count import kernel
+
+    kernel.launches = 0
+    kernel.launch_shapes.clear()
+    out, wall = _wall(fn)
+    return out, wall, kernel.launches, dict(kernel.launch_shapes)
+
+
+def _profile_line(tag: str, dev: dict, wall: float, wall_p: float,
+                  steps: int | None = None) -> None:
+    """Device busy/idle share of an unprofiled wall, from a profiled rerun."""
+    if not dev:
+        print(f"  profile of {tag}: the profiler saw no device time "
+              "(not measured)", flush=True)
+        return
+    busy = sum(us for _, us in dev.values()) / 1e6
+    n_kern = sum(n for n, _ in dev.values())
+    sc = sum(us for k, (_, us) in dev.items() if "support_count_kernel" in k) / 1e6
+    per = "" if steps is None else f" ({n_kern / steps:.1f} per superstep)"
+    print(f"  profile of {tag}: device busy {busy * 1e3:.3f} ms = "
+          f"{100 * busy / wall:.2f}% of the unprofiled {wall:.3f} s "
+          f"(idle {100 * (1 - busy / wall):.2f}%); {n_kern} device "
+          f"activities{per}; support_count {sc * 1e3:.3f} ms = "
+          f"{100 * sc / busy:.2f}% of device time; profiled wall "
+          f"{wall_p:.3f} s", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -302,11 +401,25 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    from repro_torch.api import (
+        ClosedFrequentQuery,
+        Dataset,
+        MinerSession,
+        RuntimeConfig,
+    )
     from repro_torch.core.engine import EngineConfig, mine, pack_problem_from_bits
     from repro_torch.data.synthetic import paper_problem_packed
     from repro_torch.kernels.support_count import kernel
+    from repro_torch.obs import SpanTracer
+
+    t_start = time.perf_counter()
+
+    def done(phase: str, t0: float) -> None:
+        print(f"[{phase}] done in {time.perf_counter() - t0:.1f} s "
+              f"({time.perf_counter() - t_start:.1f} s since start)", flush=True)
 
     # ---- 1. environment
+    t0 = time.perf_counter()
     name_power = _nvidia_smi("name,power.limit")
     print(name_power, flush=True)
     clock_mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
@@ -315,6 +428,7 @@ def main() -> int:
     print(f"[1] card: {kind}; {props.multi_processor_count} SMs; max SM clock "
           f"{clock_mhz:.0f} MHz; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
+    done("1", t0)
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -325,9 +439,16 @@ def main() -> int:
     print(log, flush=True)
     if log and "0 bytes spill stores, 0 bytes spill loads" not in log:
         raise AssertionError("the kernel spills registers (see ptxas above)")
+    done("2", t0)
 
     # ---- 3. kernel vs plain version, on the card
-    main_shapes = [(128, 1191, 22), (512, 1191, 22)]       # phase 4's shapes
+    t0 = time.perf_counter()
+    # the engine's shapes as the session's shape buckets pad them: EXPAND of
+    # the 1,191-item query (B = 16 P = 128), a full reconstruction chunk of
+    # it, and EXPAND at both full widths
+    bucket_shapes = [(128, 2048, 32), (512, 2048, 32), (128, 16384, 32),
+                     (128, 262144, 16)]
+    main_shapes = [(128, 1191, 22), (512, 1191, 22)]       # exact shapes
     # (1024, 11916, 22): as 11,914 items, but every row of S starts on a
     # 16-byte boundary
     full_shapes = [(128, 12288, 22), (128, 253952, 12), (512, 11914, 22),
@@ -341,90 +462,122 @@ def main() -> int:
              for w in (8, 9, 16, 24)]
     print("[3] kernel vs plain version (bit-exact); per-call times by CUDA "
           "events, device times by the profiler", flush=True)
-    rows = check_kernel(main_shapes + full_shapes + ragged + edges,
-                        profiled=len(main_shapes) + len(full_shapes))
+    profiled = bucket_shapes + main_shapes + full_shapes
+    rows = check_kernel(profiled + ragged + edges, profiled=len(profiled))
+    checked = {tuple(r["shape"]) for r in rows}
+    done("3", t0)
 
-    # ---- 4. the significance query: cuda+kernel, cuda+plain, cpu
+    # ---- 4. the session API: kernel, plain version on the card, CPU
+    t0 = time.perf_counter()
     db_bits, labels, _, spec = paper_problem_packed("hapmap_dom_20", scale_items=0.1)
-    print(f"[4] fused23 on {spec.name}: {spec.n_items} items x "
-          f"{spec.n_transactions} transactions, P = 8", flush=True)
-    packed = {dev: pack_problem_from_bits(db_bits, labels, n=spec.n_transactions,
-                                          device=dev) for dev in ("cuda", "cpu")}
+    datasets = {dev: Dataset.from_packed_words(
+        db_bits, labels, n_transactions=spec.n_transactions, name=spec.name,
+        device=dev) for dev in ("cuda", "cpu")}
+    bucket = datasets["cuda"].bucket
+    print(f"[4] session queries on {spec.name}: {spec.n_items} items x "
+          f"{spec.n_transactions} transactions, P = 8, bucket "
+          f"({bucket.transactions}, {bucket.positives}, {bucket.items}), "
+          f"W = {bucket.words}", flush=True)
+    sessions = {
+        # the main path; its spans show in the profiler's trace
+        "kernel": (MinerSession(8, tracer=SpanTracer(torch_profiler=True)),
+                   "cuda", "cuda"),
+        "plain": (MinerSession(8, runtime=RuntimeConfig(kernel_impl="ref")),
+                  "cuda", "ref"),
+        "cpu": (MinerSession(8, device="cpu"), "cpu", "ref"),
+    }
+    launched: set = set()   # every (B, M, W) phases 4-5 launched
 
-    def query(device, impl):
-        cfg = EngineConfig(out_cap=4096, kernel_impl=impl)
-        return fused23(packed[device], n_miners=8, cfg=cfg)
+    def run(tag: str, who: str, label: str | None = None):
+        session, dev, impl = sessions[who]
+        misses = session.cache_info().misses
+        rep, wall, n_launch, shapes = _counted(
+            lambda: session.run(datasets[dev], make_query(tag)))
+        launched.update(shapes)
+        added = session.cache_info().misses - misses
+        steps = sum(p.supersteps for p in rep.phases)
+        popped = sum(p.n_nodes for p in rep.phases)
+        if any(p.kernel_impl != impl for p in rep.phases):
+            raise AssertionError(f"({tag}) {who}: ran {rep.kernel_impl}, not {impl}")
+        if (n_launch > 0) != (impl == "cuda"):
+            raise AssertionError(f"({tag}) {who}: {n_launch} kernel launches")
+        print(f"  ({label or tag}) {who} [{dev}/{impl}]: {wall:.3f} s; "
+              f"{len(rep.phases)} phases, supersteps "
+              f"{'+'.join(str(p.supersteps) for p in rep.phases)} "
+              f"({steps / wall:.1f}/s); popped {popped} ({popped / wall:.0f}/s); "
+              f"programs built {added}; kernel launches {n_launch}; "
+              f"{rep.summary()}", flush=True)
+        return rep, wall, n_launch, shapes, added
 
-    def report(tag, rep, wall, device, impl):
-        ph1, ph2 = rep["phases"]
-        steps = ph1.supersteps + ph2.supersteps
-        popped = int(ph1.stats["popped"].sum() + ph2.stats["popped"].sum())
-        print(f"  ({tag}) {device}/{impl}: {wall:.3f} s; supersteps "
-              f"{ph1.supersteps} + {ph2.supersteps} ({steps / wall:.1f}/s); "
-              f"popped {popped} ({popped / wall:.0f}/s); lambda "
-              f"{rep['lambda_final']}, min_sup {rep['min_sup']}, k "
-              f"{rep['correction_factor']}, significant {rep['n_significant']}, "
-              f"patterns {len(rep['results'])}", flush=True)
-        return steps
-
-    _wall(lambda: query("cuda", "auto"))            # warm-up, not reported
-    reports = {}
-    # the main path: its kernel launches are counted from 0
-    kernel.launches = 0
-    reports["a"], wall_a = _wall(lambda: query("cuda", "auto"))
-    main_launches = kernel.launches
-    steps = report("a", reports["a"], wall_a, "cuda", "auto")
-    # then in turns: plain, plain, kernel; then the CPU
-    for tag, device, impl in (("b", "cuda", "ref"), ("b2", "cuda", "ref"),
-                              ("a2", "cuda", "auto"), ("c", "cpu", "auto")):
-        reports[tag], wall = _wall(lambda: query(device, impl))
-        report(tag, reports[tag], wall, device, impl)
-    for tag in ("b", "b2", "a2", "c"):
-        bad = query_diffs(reports["a"], reports[tag])
+    def check_expect(tag, rep):
+        bad = expect_diffs(rep, QUERY_EXPECT[tag][1])
         if bad:
-            raise AssertionError(f"query (a) != ({tag}) in {bad}")
-    for f, want in QUERY_EXPECT.items():
-        if reports["a"][f] != want:
-            raise AssertionError(f"{f} = {reports['a'][f]}, expected {want}")
-    if len(reports["a"]["results"]) != QUERY_EXPECT["n_significant"]:
-        raise AssertionError("ResultSet size != n_significant")
+            raise AssertionError(f"query ({tag}) != the JAX package's: {bad}")
+
+    # (a): cold, then warm — the warm run is the main path
+    rep_cold, wall_cold, _, _, built = run("a", "kernel", "a cold")
+    rep_a, wall_a, main_launches, shapes_a, built_warm = run("a", "kernel", "a warm")
+    if built_warm:
+        raise AssertionError(f"the warm query (a) built {built_warm} programs")
     if main_launches <= 0:
         raise AssertionError("the main path launched no support_count kernel")
-    print(f"  (a) == (b) == (c), JAX values matched; kernel launches on the "
-          f"main path: {main_launches} ({main_launches / steps:.2f} per superstep)",
-          flush=True)
+    expand_shape = (16 * 8, bucket.items, bucket.words)
+    if expand_shape not in shapes_a:
+        raise AssertionError(f"(a) never launched at {expand_shape}: {shapes_a}")
+    print(f"  (a) warm: kernel launches by (B, M, W): {shapes_a}", flush=True)
+    reports = {"a": {"kernel": rep_a}}
+    bad = report_diffs(rep_cold, rep_a)
+    if bad:
+        raise AssertionError(f"(a) cold != warm in {bad}")
+    for tag in ("a", "b", "c"):
+        for who in ("kernel", "plain", "cpu"):
+            if (tag, who) != ("a", "kernel"):
+                reports.setdefault(tag, {})[who] = run(tag, who)[0]
+        for who in ("plain", "cpu"):
+            bad = report_diffs(reports[tag]["kernel"], reports[tag][who])
+            if bad:
+                raise AssertionError(f"({tag}) kernel != {who} in {bad}")
+        check_expect(tag, reports[tag]["kernel"])
+    rep_d = run("d", "kernel")[0]
+    check_expect("d", rep_d)
+    print(f"  (a), (b), (c): kernel == plain == CPU, MineReports and ResultSet "
+          f"exports; (a)-(d) equal the JAX package's values; main-path kernel "
+          f"launches {main_launches} over "
+          f"{sum(p.supersteps for p in rep_a.phases)} supersteps", flush=True)
 
-    # where the time goes: one more warm kernel run under the profiler
-    _, dev, wall_p = _profile(lambda: query("cuda", "auto"))
+    # where the time goes: one more warm kernel run of (a) under the profiler
+    session_k = sessions["kernel"][0]
+    rep_p, dev, wall_p = _profile(lambda: session_k.run(datasets["cuda"],
+                                                        make_query("a")))
+    # the session's spans, should a torch build not flag their device
+    # ranges as annotations
+    spans = {e["name"] for e in session_k.tracer.events()}
+    dev = {k: v for k, v in dev.items() if k not in spans}
+    bad = report_diffs(rep_a, rep_p)
+    if bad:
+        raise AssertionError(f"(a) profiled run differs in {bad}")
+    _profile_line("(a)", dev, wall_a, wall_p,
+                  steps=sum(p.supersteps for p in rep_a.phases))
     if dev:
-        busy = sum(us for _, us in dev.values()) / 1e6
-        n_kern = sum(n for n, _ in dev.values())
-        sc = sum(us for k, (_, us) in dev.items() if "support_count_kernel" in k) / 1e6
-        print(f"  profile of (a): device busy {busy * 1e3:.1f} ms = "
-              f"{100 * busy / wall_a:.2f}% of the unprofiled {wall_a:.3f} s "
-              f"(idle {100 * (1 - busy / wall_a):.2f}%); {n_kern} device "
-              f"activities ({n_kern / steps:.1f} per superstep); support_count "
-              f"{sc * 1e3:.2f} ms = {100 * sc / busy:.2f}% of device time; "
-              f"profiled wall {wall_p:.3f} s", flush=True)
-        top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]
-        for k, (n, us) in top:
+        for k, (n, us) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]:
             print(f"    {us / 1e3:9.3f} ms  {n:6d} x  {k[:100]}", flush=True)
-    else:
-        print("  profile of (a): the profiler saw no device time (not measured)",
-              flush=True)
+    done("4", t0)
 
-    # ---- 5. the paper's full widths, mode count
-    print("[5] full widths, mode count, P = 8 (in turns: kernel, plain, plain, "
-          "kernel; then kernel under the profiler)", flush=True)
-    for name, min_sup, closed in FULL_WIDTH:
+    # ---- 5. the paper's full widths: mode count and the closed-frequent query
+    t0 = time.perf_counter()
+    print("[5] full widths, P = 8: mode count in turns (kernel, plain, plain, "
+          "kernel; then kernel under the profiler), then the closed-frequent "
+          "query through the session (kernel, plain)", flush=True)
+    for name, min_sup, closed, sha in FULL_WIDTH:
         bits, lab, _, sp = paper_problem_packed(name)
         pk = pack_problem_from_bits(bits, lab, n=sp.n_transactions, device="cuda")
         outs = {}
         for impl in ("auto", "ref", "ref", "auto"):
             cfg = EngineConfig(kernel_impl=impl, max_steps=4000)
-            before = kernel.launches
-            out, wall = _wall(lambda: mine(packed=pk, mode="count",
-                                           min_sup=min_sup, cfg=cfg, n_miners=8))
+            out, wall, n_launch, shapes = _counted(
+                lambda: mine(packed=pk, mode="count", min_sup=min_sup, cfg=cfg,
+                             n_miners=8))
+            launched.update(shapes)
             outs.setdefault(impl, out)
             last_wall = wall
             bad = mine_output_diffs(outs[impl], out)
@@ -433,7 +586,7 @@ def main() -> int:
             print(f"  {name} {sp.n_items} x {sp.n_transactions} ({impl}): "
                   f"{wall:.3f} s, {out.supersteps} supersteps, closed sets "
                   f"{int(out.hist.sum())}, popped {int(out.stats['popped'].sum())}, "
-                  f"kernel launches {kernel.launches - before}", flush=True)
+                  f"kernel launches {n_launch}", flush=True)
         bad = mine_output_diffs(outs["auto"], outs["ref"])
         if bad:
             raise AssertionError(f"{name}: kernel != plain in {bad}")
@@ -446,39 +599,67 @@ def main() -> int:
         bad = mine_output_diffs(outs["auto"], out)
         if bad:
             raise AssertionError(f"{name} (profiled): runs differ in {bad}")
-        if dev:
-            busy = sum(us for _, us in dev.values()) / 1e6
-            sc = sum(us for k, (_, us) in dev.items()
-                     if "support_count_kernel" in k) / 1e6
-            print(f"  profile of {name} (kernel): device busy {busy * 1e3:.3f} ms = "
-                  f"{100 * busy / last_wall:.2f}% of the last unprofiled kernel "
-                  f"run's {last_wall:.3f} s (idle {100 * (1 - busy / last_wall):.2f}%); "
-                  f"support_count {sc * 1e3:.3f} ms = {100 * sc / busy:.2f}% of "
-                  f"device time; profiled wall {wall_p:.3f} s", flush=True)
-        else:
-            print(f"  profile of {name}: the profiler saw no device time "
-                  "(not measured)", flush=True)
+        _profile_line(f"{name} count (kernel)", dev, last_wall, wall_p)
+        del pk
 
-    head = rows[0]  # the main path's engine shape
+        ds = Dataset.from_packed_words(bits, lab, n_transactions=sp.n_transactions,
+                                       name=name)
+        reps = {}
+        for who in ("kernel", "plain"):
+            session = sessions[who][0]
+            rep, wall, n_launch, shapes = _counted(
+                lambda: session.run(ds, ClosedFrequentQuery(min_sup=min_sup)))
+            if who == "kernel":
+                launched.update(shapes)
+            reps[who] = rep
+            print(f"  {name} closed-frequent ({who}): {wall:.3f} s, bucket "
+                  f"({ds.bucket.transactions}, {ds.bucket.positives}, "
+                  f"{ds.bucket.items}), supersteps {rep.phases[0].supersteps}, "
+                  f"closed {rep.n_significant}, patterns {len(rep.results)}, "
+                  f"kernel launches {n_launch} {shapes}", flush=True)
+        bad = report_diffs(reps["kernel"], reps["plain"])
+        if bad:
+            raise AssertionError(f"{name} closed-frequent: kernel != plain in {bad}")
+        got = (reps["kernel"].n_significant, len(reps["kernel"].results),
+               results_sha256(reps["kernel"].results))
+        if got != (closed, closed, sha):
+            raise AssertionError(f"{name} closed-frequent: {got}, expected the "
+                                 f"JAX package's {(closed, closed, sha)}")
+        del ds
+    done("5", t0)
+
+    # ---- 3b. the kernel at every shape phases 4-5 launched, not yet checked
+    t0 = time.perf_counter()
+    new = sorted(launched - checked)
+    print(f"[3b] kernel vs plain version at the {len(new)} shapes phases 4-5 "
+          f"launched that phase 3 did not check: {new}", flush=True)
+    rows += check_kernel_in_child(new)
+    done("3b", t0)
+
+    head = next(r for r in rows if tuple(r["shape"]) == expand_shape)
     print(json.dumps({"kernels": [{
         "name": "support_count",
         "route": "cuda",
         "source": "src/repro_torch/kernels/support_count/csrc/support_count.cu",
         "replaces": "src/repro/kernels/support_count/kernel.py:45",
+        # launches of the main path: query (a), warm
         "launches": main_launches,
         "mismatches": sum(r["mismatches"] for r in rows),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # the kernel's device time (profiler); call_ms is per back-to-back call
+        # at (a)'s bucketed EXPAND shape: the kernel's device time
+        # (profiler); call_ms is per back-to-back call
         "ms": head["device_ms"] if head["device_ms"] is not None else head["ms"],
         "call_ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
-        # torch._int_mm on operands unpacked beforehand, device time
+        # one PyTorch matmul on operands unpacked beforehand, device time
         "library_ms": head["library_ms"],
+        "library": head["library"],
         "library_m_pad": head["library_m_pad"],
         "shape": head["shape"],
-        # the engine's, reconstruction's and full-width shapes (profiled)
+        # every profiled shape: the buckets', the engine's, reconstruction's,
+        # full widths' and those phases 4-5 launched
         "shapes": [r for r in rows if r["device_ms"] is not None],
         "shapes_checked": len(rows),
     }]}))
@@ -488,4 +669,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--check-shapes"]:   # 3b's child (check_kernel_in_child)
+        shapes = [tuple(x) for x in json.loads(sys.argv[2])]
+        print(json.dumps(check_kernel(shapes, profiled=len(shapes))))
+        sys.exit(0)
     sys.exit(main())

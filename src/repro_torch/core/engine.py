@@ -65,9 +65,6 @@ _NSTAT = len(STAT_NAMES)
 #: the engine's pass modes (see module docstring); anything else is a typo
 VALID_MODES = ("lamp1", "count", "test", "count2d")
 
-#: per-miner stack memory ceiling of the automatic stack_cap (bytes)
-_STACK_MEM_BYTES = 256 * 2**20
-
 
 @dataclass(frozen=True)
 class EngineConfig:
@@ -113,14 +110,16 @@ def _check_ported(cfg: EngineConfig) -> None:
         raise ValueError("kernel_blocks: the CUDA kernel's tile is fixed; pass None")
 
 
-def resolve_stack_cap(cfg: EngineConfig, m_pad: int, w_pad: int, n_proc: int) -> int:
+def resolve_stack_cap(cfg: EngineConfig, m_pad: int, w_pad: int, n_proc: int,
+                      stack_mem_mb: int = 256) -> int:
     """cfg.stack_cap, or the JAX `RuntimeConfig.resolve` default: 2 nodes per
-    depth-1 root dealt to a miner, floored at 8192, clamped to 256 MiB of
-    stack per miner but never below what one superstep can produce."""
+    depth-1 root dealt to a miner, floored at 8192, clamped to
+    `stack_mem_mb` MiB of stack per miner but never below what one
+    superstep can produce."""
     if cfg.stack_cap is not None:
         return int(cfg.stack_cap)
     cap = max(8192, 2 * m_pad // max(n_proc, 1) + 64)
-    mem_cap = _STACK_MEM_BYTES // (4 * (w_pad + 4))
+    mem_cap = (stack_mem_mb * 2**20) // (4 * (w_pad + 4))
     floor = 2 * (cfg.push_cap + cfg.steal_max + cfg.expand_batch)
     return int(max(min(cap, mem_cap), floor))
 

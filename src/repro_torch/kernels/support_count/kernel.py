@@ -13,9 +13,9 @@ There is no fallback: a failed build or a failed launch raises.  The plain
 version (`ref.support_count_ref`) is chosen by the dispatch in `ops.py`
 only for tensors on the CPU.
 
-`launches` counts the kernel launches made through `support_count_cuda`;
-a run resets it to 0 and reads it to show that its path went through the
-kernel.
+`launches` counts the kernel launches made through `support_count_cuda`,
+and `launch_shapes` counts them by (B, M, W); a run resets both and reads
+them to show that its path went through the kernel, and at which shapes.
 """
 
 from __future__ import annotations
@@ -27,11 +27,13 @@ import shutil
 import subprocess
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCE", "NVCC_FLAGS", "build", "build_log", "launches", "support_count_cuda"]
+__all__ = ["SOURCE", "NVCC_FLAGS", "build", "build_log", "launch_shapes", "launches",
+           "support_count_cuda"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "support_count.cu"
 NVCC_FLAGS = (
@@ -42,6 +44,8 @@ _ALIGN = 16            # bytes: the kernel's cp.async copies and vector stores
 
 #: kernel launches made through `support_count_cuda` since the last reset
 launches = 0
+#: the same launches by (B, M, W) shape
+launch_shapes: Counter = Counter()
 
 _lib = None
 _build_log = ""
@@ -155,4 +159,5 @@ def support_count_cuda(occ: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
             f"support_count kernel launch failed: {lib.sc_error_string(rc).decode()}"
         )
     launches += 1
+    launch_shapes[(b, m, w)] += 1
     return out

@@ -24,14 +24,15 @@ __all__ = ["reconstruct_closures", "dedup_by_closure"]
 
 def reconstruct_closures(
     occ: np.ndarray, sup: np.ndarray, db_bits, chunk: int = 512,
-    device=None,
+    device=None, impl: str = "auto",
 ) -> list[tuple[int, ...]]:
     """[K, W] occurrence bitmaps + [K] supports -> K closure itemsets.
 
     `db_bits` is the [M, W] database: uint32 numpy words, uploaded to
     `device` (default: the card), or an int32 tensor, used where it lies.
     Records are counted against it `chunk` at a time, so the [chunk, M]
-    output stays small.
+    output stays small.  `impl` is the support count's (`ops.resolve_impl`:
+    "auto" takes the kernel on the card).
     """
     from repro_torch.kernels.support_count.ops import support_counts
 
@@ -50,7 +51,8 @@ def reconstruct_closures(
         db = words_to_tensor(np.asarray(db_bits), dev)
     for lo in range(0, k, chunk):
         hi = min(lo + chunk, k)
-        s = support_counts(words_to_tensor(occ[lo:hi], dev), db)  # [chunk, M]
+        s = support_counts(words_to_tensor(occ[lo:hi], dev), db,
+                           impl=impl)  # [chunk, M]
         want = torch.from_numpy(sup[lo:hi].astype(np.int64)).to(dev)
         in_clo = (s == want[:, None]).cpu().numpy()
         for r in range(hi - lo):

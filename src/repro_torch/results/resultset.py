@@ -29,6 +29,7 @@ import math
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from repro_torch.core.bitmap import words_to_tensor
 from repro_torch.device import resolve_device
@@ -199,7 +200,7 @@ def build_result_set(
     occ: np.ndarray,
     sup: np.ndarray,
     pos_sup: np.ndarray,
-    db_bits: np.ndarray,
+    db_bits: "np.ndarray | torch.Tensor",
     *,
     n: int,
     n_pos: int,
@@ -212,22 +213,29 @@ def build_result_set(
     item_names: tuple[str, ...] | None = None,
     statistic: str | None = "fisher",
     device=None,
+    impl: str = "auto",
 ) -> ResultSet:
     """Emitted records -> deduped, exactly-(re)tested, sorted ResultSet.
 
     `statistic` names the registered test used for the exact host P-values
     (it must match the device test that emitted the records); None skips
     testing entirely — patterns carry NaN P/q and sort by support (the
-    closed-frequent objective).  Closures are reconstructed on `device`
-    (default: the card; pass device="cpu" to run on the CPU).
+    closed-frequent objective).  `db_bits` is the [M, W] database: an int32
+    tensor of words is used where it lies (a session passes its dataset's
+    resident copy); uint32 numpy words are uploaded to `device` (default:
+    the card; pass device="cpu" to run on the CPU).  `impl` picks the
+    support count of closure reconstruction ("auto": the kernel on the card).
     """
     occ = np.asarray(occ, dtype=np.uint32).reshape(-1, db_bits.shape[1])
-    db_dev = words_to_tensor(np.asarray(db_bits), resolve_device(device))
+    if isinstance(db_bits, torch.Tensor):
+        db_dev = db_bits
+    else:
+        db_dev = words_to_tensor(np.asarray(db_bits), resolve_device(device))
     sup = np.asarray(sup, dtype=np.int64).reshape(-1)
     pos_sup = np.asarray(pos_sup, dtype=np.int64).reshape(-1)
 
     k = max(int(correction_factor), 1)
-    closures = reconstruct_closures(occ, sup, db_dev)
+    closures = reconstruct_closures(occ, sup, db_dev, impl=impl)
     closures, sup, pos_sup = dedup_by_closure(closures, sup, pos_sup)
 
     patterns = []

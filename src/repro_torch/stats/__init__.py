@@ -1,7 +1,7 @@
 """repro_torch.stats — pluggable test statistics (counterpart of `repro.stats`).
 
-Registered statistics: "fisher" (exact hypergeometric tail, the default).
-The JAX package's "chi2" is not ported yet (ROADMAP.md, queue 1).
+Registered statistics: "fisher" (exact hypergeometric tail, the default)
+and "chi2" (continuity-corrected one-sided chi-square upper bound).
 """
 
 from .base import (
@@ -11,6 +11,7 @@ from .base import (
     register_statistic,
     thresholds_from_bound,
 )
+from .chi2 import ChiSquared, chi2_pvalue, chi2_pvalue_torch
 from .fisher import (
     FisherExact,
     fisher_pvalue,
@@ -26,6 +27,9 @@ __all__ = [
     "get_statistic",
     "register_statistic",
     "thresholds_from_bound",
+    "ChiSquared",
+    "chi2_pvalue",
+    "chi2_pvalue_torch",
     "FisherExact",
     "fisher_pvalue",
     "fisher_pvalue_torch",

@@ -35,7 +35,6 @@ from repro_torch.stats import fisher_pvalue  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-sys.path.insert(0, ROOT)  # chip_smoke.fused23: the port's LAMP staging
 
 #: float64 P-values this close (relative) to the emission gate may be
 #: decided differently by the two float32 device tests
@@ -209,25 +208,36 @@ def test_count_p8_matches_jax_subprocess():
 
 @pytest.mark.slow
 def test_fused23_p8_matches_jax_subprocess():
-    from chip_smoke import fused23
+    """The port's fused23 staging (repro_torch.api, exact buckets as the JAX
+    `lamp_distributed` shim uses) at P = 8 against JAX on eight simulated
+    devices."""
+    from repro_torch.api import (
+        EXACT_BUCKETS,
+        Dataset,
+        MinerSession,
+        RuntimeConfig,
+        SignificantPatternQuery,
+    )
 
     got = run_subproc(dict(PROB, seed=1, mode="lamp_full", pipeline="fused23",
                            n_devices=8))
     db, labels = subproc_problem(1)
-    packed = teng.pack_problem(db, labels, device="cpu")
-    rep = fused23(packed, n_miners=8, cfg=teng.EngineConfig(**SUBPROC_KW))
-    ph1, ph2 = rep["phases"]
-    assert rep["lambda_final"] == got["lambda_final"]
-    assert rep["min_sup"] == got["min_sup"]
-    assert rep["correction_factor"] == got["correction_factor"]
-    assert rep["delta"] == got["delta"]
-    assert rep["n_significant"] == got["n_significant"]
+    ds = Dataset.from_dense(db, labels, bucket_policy=EXACT_BUCKETS, device="cpu")
+    session = MinerSession(8, device="cpu", runtime=RuntimeConfig.from_engine_config(
+        teng.EngineConfig(**SUBPROC_KW)))
+    rep = session.run(ds, SignificantPatternQuery(pipeline="fused23"))
+    ph1, ph2 = (p.output for p in rep.phases)
+    assert rep.lambda_final == got["lambda_final"]
+    assert rep.min_sup == got["min_sup"]
+    assert rep.correction_factor == got["correction_factor"]
+    assert rep.delta == got["delta"]
+    assert rep.n_significant == got["n_significant"]
     assert ph1.supersteps == got["p1_supersteps"]
     assert ph1.stats["steals_got"].tolist() == got["steals_got"]
     assert ph2.stats["closed"].tolist() == got["closed_per_dev"]
     assert ph2.stats["popped"].tolist() == got["popped_per_dev"]
     patterns = [[list(p.items), p.support, p.pos_support, p.pvalue, p.qvalue]
-                for p in rep["results"]]
+                for p in rep.results]
     assert patterns == got["patterns"]
-    assert rep["results"].complete == got["patterns_complete"]
+    assert rep.results.complete == got["patterns_complete"]
     assert sum(got["steals_got"]) > 0
