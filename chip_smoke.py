@@ -30,8 +30,21 @@ run on any error (each prints its wall time):
    more under the profiler; and the closed-frequent query through the
    session on both, kernel against plain version, equal to the JAX
    package's patterns;
+6. the superstep trace ring and fault tolerance, each run launching the
+   kernel in every phase: (a) query (a) traced equals untraced, its trace
+   digest and a wrapped ring's trace_dropped equal the JAX package's; (b)
+   query (a) in segments of 8, killed by an injected fault, resumed on 8, 4
+   and 1 miners; (c) a soft stop after one segment gives a partial report,
+   whose checkpoint resumes to (a)'s answer; (d) the full-width
+   hapmap_dom_20 Fisher query, one segment of k supersteps at a time: its
+   frontiers at k and 2k equal the JAX package's; (e) the alz_rec_30
+   closed-frequent query checkpointed every superstep, killed and resumed
+   on 4 miners; (f) the CLI with --trace-period and --ckpt-period, its
+   artifacts validated; (g) the warm wall of (a) classic, segmented,
+   segmented with checkpoints and traced, three rounds, with checkpoint
+   write times and bytes and the peak device memory of each query;
 and, after them, the kernel against the plain version at every shape
-phases 4-5 launched that phase 3 did not check (3b).
+phases 4-6 launched that phase 3 did not check (3b).
 
 The second-to-last line is a JSON object with the kernel's numbers; the
 last is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -42,9 +55,12 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -88,6 +104,21 @@ TOPK = 10
 FULL_WIDTH = (("hapmap_dom_20", 625, 204, "8df55e0bdbccbfc5"),
               ("alz_rec_30", 347, 295, "3f2aa2ce5df4614b"))
 
+#: phase 6a: query (a) at P = 8, traced every superstep: the digest of its
+#: two phases' decoded traces (`trace_digest`), and each phase's
+#: trace_dropped with a ring of `wrap_cap` slots (tests/test_torch_slice.py
+#: derives both from the JAX package on eight devices)
+TRACE_EXPECT = dict(digest="14bc53989c293a99", wrap_cap=64, wrap_dropped=[61, 40])
+#: phase 6d: the hapmap_dom_20 Fisher query at full width (11,914 x 697),
+#: P = 8, in segments of k supersteps: the frontier digest
+#: (`frontier_digest`) of its lamp1 phase at steps k and 2k, from the JAX
+#: package's uninterrupted run on eight devices (tests/test_torch_slice.py)
+FRONTIER_EXPECT = dict(problem="hapmap_dom_20", k=128, steps={
+    "00_lamp1/step_128": "95b122908f26e5ce",
+    "00_lamp1/step_256": "fee30ccf5d4ec112"})
+#: a SuperstepTrace's arrays, in the order `trace_digest` hashes them
+TRACE_ARRAYS = ("steps", "lam", "n_hungry", "fired", "depth", "popped",
+                "pushed", "closed", "emitted", "donated", "received")
 
 def make_query(tag: str):
     """Phase 4's query object for `tag` (a key of QUERY_EXPECT)."""
@@ -164,6 +195,46 @@ def report_diffs(a, b) -> list[str]:
     if ra.to_tsv() != rb.to_tsv() or ra.to_json() != rb.to_json():
         bad.append("results.export")
     return bad
+
+
+def trace_digest(traces) -> str:
+    """First 16 hex digits of the SHA-256 of decoded traces' arrays (int32,
+    TRACE_ARRAYS order, trace after trace)."""
+    h = hashlib.sha256()
+    for tr in traces:
+        for f in TRACE_ARRAYS:
+            h.update(np.ascontiguousarray(getattr(tr, f), np.int32).tobytes())
+    return h.hexdigest()[:16]
+
+
+def frontier_digest(carry: dict, fields) -> str:
+    """First 16 hex digits of the SHA-256 of a host carry's leaves, in
+    `fields` order."""
+    h = hashlib.sha256()
+    for k in fields:
+        h.update(np.ascontiguousarray(carry[k]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def step_digests(ckpt_dir: str, load_frontier, fields) -> dict:
+    """{"<phase>/step_<N>": frontier digest} of every step under a query's
+    checkpoint directory."""
+    out = {}
+    for phase in sorted(os.listdir(ckpt_dir)):
+        pdir = os.path.join(ckpt_dir, phase)
+        for name in sorted(os.listdir(pdir)):
+            if name.startswith("step_"):
+                carry, _ = load_frontier(pdir, int(name[5:]))
+                out[f"{phase}/{name}"] = frontier_digest(carry, fields)
+    return out
+
+
+def _metric(session, name: str) -> float:
+    """One unlabelled sample of the session's Prometheus exposition."""
+    for line in session.metrics.expose_text().splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return 0.0
 
 
 def _nvidia_smi(query: str) -> str:
@@ -391,6 +462,249 @@ def _profile_line(tag: str, dev: dict, wall: float, wall_p: float,
           f"{wall_p:.3f} s", flush=True)
 
 
+def phase6(ds_a, rep_a, launched: set) -> dict:
+    """Phase 6: the trace ring and fault tolerance on the card (6a-6g).
+
+    `ds_a` is phase 4's 1,191-item Dataset on the card, `rep_a` query (a)'s
+    untraced, unsegmented warm report there.  Every run adds its kernel
+    launch shapes to `launched` (3b checks them) and must launch the CUDA
+    kernel in every phase.  Checkpoints go under build/chip_smoke/, removed
+    at the end.  Returns {run: kernel launches}.
+    """
+    import torch
+
+    from repro_torch.api import (
+        ClosedFrequentQuery,
+        Dataset,
+        MinerSession,
+        RuntimeConfig,
+        SignificantPatternQuery,
+    )
+    from repro_torch.ckpt.mining import load_frontier
+    from repro_torch.core.engine import CARRY_FIELDS
+    from repro_torch.data.synthetic import paper_problem_packed
+    from repro_torch.testing import FaultPlan, SimulatedFault, injected
+
+    tmp = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    q_a = make_query("a")
+    sha_a = QUERY_EXPECT["a"][1]["results_sha256"]
+    launches: dict[str, int] = {}
+
+    def run(tag, session, ds, query, **kw):
+        """(report, wall s, peak MiB): the kernel's counters and the peak
+        memory counter reset just before."""
+        torch.cuda.reset_peak_memory_stats()
+        rep, wall, n, shapes = _counted(lambda: session.run(ds, query, **kw))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        launched.update(shapes)
+        launches[tag] = n
+        if n <= 0 or any(p.kernel_impl != "cuda" for p in rep.phases):
+            raise AssertionError(f"(6) {tag}: {n} kernel launches, impls "
+                                 f"{[p.kernel_impl for p in rep.phases]}")
+        print(f"  {tag}: {wall:.3f} s, supersteps "
+              f"{'+'.join(str(p.supersteps) for p in rep.phases)}, kernel launches "
+              f"{n}, peak {peak:.1f} MiB, ckpt writes "
+              f"{sum(p.ckpt_writes for p in rep.phases)}, partial {rep.partial}, "
+              f"resumed {[p.mode for p in rep.phases if p.resumed]}", flush=True)
+        return rep, wall, peak
+
+    def killed(session, ds, query, plan, **kw):
+        try:
+            with injected(plan):
+                session.run(ds, query, **kw)
+        except SimulatedFault as e:
+            print(f"  injected kill: {e}", flush=True)
+            return
+        raise AssertionError("the injected fault never fired")
+
+    def check_sha(tag, rep, sha):
+        got = results_sha256(rep.results)
+        if got != sha or not rep.results.complete or rep.partial:
+            raise AssertionError(f"(6) {tag}: results_sha256 {got}, complete "
+                                 f"{rep.results.complete}; expected {sha}")
+
+    def ckpt_line(tag, session):
+        n = _metric(session, "miner_ckpt_write_seconds_count")
+        s = _metric(session, "miner_ckpt_write_seconds_sum")
+        b = _metric(session, "miner_ckpt_bytes_total")
+        print(f"  {tag} checkpoints: {n:.0f} writes, {s / max(n, 1) * 1e3:.3f} ms "
+              f"and {b / max(n, 1) / 2**20:.3f} MiB per segment "
+              f"({b / max(s, 1e-9) / 2**30:.3f} GiB/s)", flush=True)
+
+    try:
+        # (6a) the trace ring: changes nothing, equals the JAX package's
+        print("[6a] query (a) traced every superstep, P = 8", flush=True)
+        traced = MinerSession(8, runtime=RuntimeConfig(trace_period=1, trace_cap=256))
+        rep_t = run("6a traced", traced, ds_a, q_a)[0]
+        bad = report_diffs(rep_a, rep_t)
+        if bad:
+            raise AssertionError(f"(6a) traced (a) != untraced in {bad}")
+        digest = trace_digest([p.trace for p in rep_t.phases])
+        if digest != TRACE_EXPECT["digest"]:
+            raise AssertionError(f"(6a) trace digest {digest}, expected the JAX "
+                                 f"package's {TRACE_EXPECT['digest']}")
+        wrap = MinerSession(8, runtime=RuntimeConfig(
+            trace_period=1, trace_cap=TRACE_EXPECT["wrap_cap"]))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rep_w = run("6a wrapped", wrap, ds_a, q_a)[0]
+        dropped = [p.trace_dropped for p in rep_w.phases]
+        # the ring's own counter is the one field a wrap may change
+        bad = [d for d in report_diffs(rep_a, rep_w)
+               if not d.endswith(".stats.trace_dropped")]
+        warned = any("trace ring wrapped" in str(w.message) for w in caught)
+        if dropped != TRACE_EXPECT["wrap_dropped"] or bad or not warned:
+            raise AssertionError(
+                f"(6a) wrapped ring: trace_dropped {dropped} (expected "
+                f"{TRACE_EXPECT['wrap_dropped']}), differs from (a) in {bad}, "
+                f"warned {warned}")
+        print(f"  (6a) traced == untraced; trace digest {digest} and wrapped "
+              f"trace_dropped {dropped} equal the JAX package's; "
+              f"{rep_t.phases[1].trace.summary()}", flush=True)
+
+        # (6b) killed a few segments in, resumed on 8, 4 and 1 miners
+        print("[6b] query (a), ckpt_period 8: kill, then elastic resume", flush=True)
+        seg = RuntimeConfig(ckpt_period=8)
+        d_b = str(tmp / "6b")
+        killed(MinerSession(8, runtime=seg), ds_a, q_a,
+               FaultPlan(die_after_segments=5), ckpt_dir=d_b)
+        for p in (8, 4, 1):
+            rep = run(f"6b resume on {p}", MinerSession(p, runtime=seg), ds_a, q_a,
+                      resume_from=d_b)[0]
+            if not rep.phases[0].resumed:
+                raise AssertionError(f"(6b) the resume on {p} restored nothing")
+            check_sha(f"6b resume on {p}", rep, sha_a)
+
+        # (6c) a soft deadline after the first segment, then its resume
+        print("[6c] query (a): soft stop after one segment, then resume", flush=True)
+        d_c = str(tmp / "6c")
+        part = run("6c partial", MinerSession(8, runtime=seg), ds_a, q_a,
+                   ckpt_dir=d_c, should_stop=lambda: True)[0]
+        if not part.partial or part.results.complete or not part.ckpt_path:
+            raise AssertionError(f"(6c) not a partial report: {part.summary()}")
+        resume_dir = os.path.dirname(os.path.dirname(part.ckpt_path))
+        check_sha("6c resumed", run("6c resumed", MinerSession(8, runtime=seg), ds_a,
+                                    q_a, resume_from=resume_dir)[0], sha_a)
+
+        # (6d) the full-width hapmap_dom_20 Fisher query, one segment at a time
+        k = FRONTIER_EXPECT["k"]
+        name = FRONTIER_EXPECT["problem"]
+        bits, lab, _, sp = paper_problem_packed(name)
+        ds_f = Dataset.from_packed_words(bits, lab, n_transactions=sp.n_transactions,
+                                         name=name)
+        print(f"[6d] {name} Fisher query at full width ({sp.n_items} x "
+              f"{sp.n_transactions}), P = 8, segments of {k}", flush=True)
+        q_f = SignificantPatternQuery(statistic="fisher")
+        rt = RuntimeConfig(ckpt_period=k)
+        got = {}
+        for i, resume in ((1, None), (2, str(tmp / "6d_1"))):
+            s = MinerSession(8, runtime=rt)
+            rep = run(f"6d segment {i}", s, ds_f, q_f, ckpt_dir=str(tmp / f"6d_{i}"),
+                      resume_from=resume, should_stop=lambda: True)[0]
+            if not rep.partial or not rep.ckpt_path.endswith(f"step_{i * k}"):
+                raise AssertionError(f"(6d) segment {i}: {rep.ckpt_path}")
+            ckpt_line(f"6d segment {i}", s)
+            got.update(step_digests(str(tmp / f"6d_{i}"), load_frontier, CARRY_FIELDS))
+        if got != FRONTIER_EXPECT["steps"]:
+            raise AssertionError(f"(6d) frontier digests {got}, expected the JAX "
+                                 f"package's {FRONTIER_EXPECT['steps']}")
+        print(f"  (6d) frontiers at steps {k} and {2 * k} equal the JAX "
+              f"package's: {got}", flush=True)
+        del ds_f
+
+        # (6e) alz_rec_30 closed-frequent, a checkpoint every superstep
+        name, min_sup, closed, sha = FULL_WIDTH[1]
+        bits, lab, _, sp = paper_problem_packed(name)
+        ds_z = Dataset.from_packed_words(bits, lab, n_transactions=sp.n_transactions,
+                                         name=name)
+        print(f"[6e] {name} closed-frequent ({sp.n_items} items), ckpt_period 1, "
+              "P = 8; kill, resume on 4", flush=True)
+        q_z = ClosedFrequentQuery(min_sup=min_sup)
+        rt1 = RuntimeConfig(ckpt_period=1)
+        s = MinerSession(8, runtime=rt1)
+        rep = run("6e checkpointed", s, ds_z, q_z, ckpt_dir=str(tmp / "6e_full"))[0]
+        ckpt_line("6e", s)
+        check_sha("6e checkpointed", rep, sha)
+        killed(MinerSession(8, runtime=rt1), ds_z, q_z,
+               FaultPlan(die_after_segments=1), ckpt_dir=str(tmp / "6e"))
+        rep = run("6e resume on 4", MinerSession(4, runtime=rt1), ds_z, q_z,
+                  resume_from=str(tmp / "6e"))[0]
+        check_sha("6e resume on 4", rep, sha)
+        if rep.n_significant != closed or not rep.phases[0].resumed:
+            raise AssertionError(f"(6e) {rep.n_significant} sets, expected {closed}")
+        del ds_z
+
+        # (6f) the CLI with every new flag; its artifacts validate
+        print("[6f] the mine CLI: --trace-period 1 --ckpt-period 8", flush=True)
+        f = {n: str(tmp / n) for n in ("ck", "t.json", "m.prom", "blob.json")}
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.mine", "--devices", "8",
+             "--pipeline", "fused23", "--trace-period", "1", "--ckpt-dir", f["ck"],
+             "--ckpt-period", "8", "--trace-out", f["t.json"], "--metrics-out",
+             f["m.prom"], "--json-out", f["blob.json"]],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+        if cli.returncode != 0:
+            raise AssertionError(f"(6f) the CLI failed:\n{cli.stderr[-4000:]}")
+        with open(f["blob.json"]) as fh:
+            blob = json.load(fh)
+        if "superstep_trace" not in blob or blob["ckpt"]["writes"] <= 0:
+            raise AssertionError(f"(6f) blob lacks its trace/ckpt keys: {blob}")
+        val = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.validate", "--chrome",
+             f["t.json"], "--prom", f["m.prom"]],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+        if val.returncode != 0 or val.stdout.count("[ok]") != 2:
+            raise AssertionError(f"(6f) validate: {val.stdout}{val.stderr[-2000:]}")
+        print(f"  (6f) CLI: significant {blob['significant']}, ckpt {blob['ckpt']}; "
+              f"{val.stdout.strip()}", flush=True)
+
+        # (6g) what the trace and the segments cost on query (a), warm
+        print("[6g] query (a) warm, P = 8, three rounds of: classic, segmented "
+              "(no writer), segmented with checkpoints, traced", flush=True)
+        variants = {"classic": RuntimeConfig(),
+                    "segmented": RuntimeConfig(ckpt_period=8),
+                    "segmented+ckpt": RuntimeConfig(ckpt_period=8),
+                    "traced": RuntimeConfig(trace_period=1, trace_cap=256)}
+        sessions = {v: MinerSession(8, runtime=rt) for v, rt in variants.items()}
+        for v, s in sessions.items():
+            s.run(ds_a, q_a)                      # build the programs
+        walls = {v: [] for v in variants}
+        peaks = {}
+        for i in range(3):
+            # the order of the three without a writer turns each round; the
+            # run that writes ~440 MB of checkpoints goes last, so the
+            # host's write-back of its files never lands in another's wall
+            order = ["classic", "segmented", "traced"]
+            for v in order[i:] + order[:i] + ["segmented+ckpt"]:
+                s = sessions[v]
+                kw = {"ckpt_dir": str(tmp / f"6g_{i}")} if v == "segmented+ckpt" else {}
+                rep, wall, peak = run(f"6g {v} #{i + 1}", s, ds_a, q_a, **kw)
+                bad = report_diffs(rep_a, rep)
+                if bad:
+                    raise AssertionError(f"(6g) {v} != (a) in {bad}")
+                walls[v].append(wall)
+                peaks[v] = peak
+        ckpt_line("6g segmented+ckpt", sessions["segmented+ckpt"])
+        steps = sum(p.supersteps for p in rep_a.phases)
+        for v in ("classic", "traced"):
+            _, dev, wall_p = _profile(lambda: sessions[v].run(ds_a, q_a))
+            spans = {e["name"] for e in sessions[v].tracer.events()}
+            _profile_line(f"6g {v}", {k: x for k, x in dev.items() if k not in spans},
+                          min(walls[v]), wall_p, steps=steps)
+        for v in variants:
+            best = min(walls[v])
+            print(f"  (6g) {v}: walls {[round(w, 4) for w in walls[v]]} s, best "
+                  f"{best:.4f} s ({steps / best:.1f} supersteps/s, "
+                  f"{100 * (best / min(walls['classic']) - 1):+.1f}% vs classic), "
+                  f"peak {peaks[v]:.1f} MiB", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -491,8 +805,10 @@ def main() -> int:
     def run(tag: str, who: str, label: str | None = None):
         session, dev, impl = sessions[who]
         misses = session.cache_info().misses
+        torch.cuda.reset_peak_memory_stats()
         rep, wall, n_launch, shapes = _counted(
             lambda: session.run(datasets[dev], make_query(tag)))
+        peak = torch.cuda.max_memory_allocated() / 2**20
         launched.update(shapes)
         added = session.cache_info().misses - misses
         steps = sum(p.supersteps for p in rep.phases)
@@ -506,7 +822,7 @@ def main() -> int:
               f"{'+'.join(str(p.supersteps) for p in rep.phases)} "
               f"({steps / wall:.1f}/s); popped {popped} ({popped / wall:.0f}/s); "
               f"programs built {added}; kernel launches {n_launch}; "
-              f"{rep.summary()}", flush=True)
+              f"peak device memory {peak:.1f} MiB; {rep.summary()}", flush=True)
         return rep, wall, n_launch, shapes, added
 
     def check_expect(tag, rep):
@@ -628,10 +944,15 @@ def main() -> int:
         del ds
     done("5", t0)
 
-    # ---- 3b. the kernel at every shape phases 4-5 launched, not yet checked
+    # ---- 6. the trace ring and fault tolerance
+    t0 = time.perf_counter()
+    p6_launches = phase6(datasets["cuda"], rep_a, launched)
+    done("6", t0)
+
+    # ---- 3b. the kernel at every shape phases 4-6 launched, not yet checked
     t0 = time.perf_counter()
     new = sorted(launched - checked)
-    print(f"[3b] kernel vs plain version at the {len(new)} shapes phases 4-5 "
+    print(f"[3b] kernel vs plain version at the {len(new)} shapes phases 4-6 "
           f"launched that phase 3 did not check: {new}", flush=True)
     rows += check_kernel_in_child(new)
     done("3b", t0)
@@ -662,6 +983,8 @@ def main() -> int:
         # full widths' and those phases 4-5 launched
         "shapes": [r for r in rows if r["device_ms"] is not None],
         "shapes_checked": len(rows),
+        # launches of each phase 6 run (trace ring, segments, resumes)
+        "phase6_launches": p6_launches,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

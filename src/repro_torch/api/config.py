@@ -14,6 +14,8 @@ memory (`stack_mem_mb`), which scales with the word width W — and resolves
 `kernel_impl="auto"` against the session's device (`cuda` on the card,
 `ref` on the CPU), so the resolved `EngineConfig` is concrete.  Resolution
 uses bucket dims, not exact dims, so same-bucket datasets share programs.
+`trace_period` and `ckpt_period` pass through into the resolved config, so
+traced, segmented and classic sessions never share a program.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from dataclasses import dataclass, fields, replace
 
 from repro_torch.core.engine import EngineConfig, resolve_stack_cap
 from repro_torch.kernels.support_count.ops import resolve_impl
+from repro_torch.obs.trace import DEFAULT_TRACE_CAP
 
 from .dataset import ShapeBucket
 
@@ -56,10 +59,15 @@ class RuntimeConfig:
     #: the JAX Pallas kernel's block triple; the CUDA kernel sizes its own
     #: grid, so this must stay None
     kernel_blocks: tuple[int, int, int] | None = None
-    trace_period: int = 0          # superstep trace ring: not ported yet
-    trace_cap: int = 0
+    #: superstep trace sampling period (DESIGN.md §9): 0 = tracing off;
+    #: k > 0 records one TraceField row every k-th superstep
+    trace_period: int = 0
+    trace_cap: int = 0             # trace ring slots; 0 = default when tracing
     sync_period: int = 4           # supersteps between lambda/histogram syncs
-    ckpt_period: int = 0           # segmented program: not ported yet
+    #: checkpoint cadence (DESIGN.md §11): 0 = classic whole-phase loop;
+    #: k > 0 runs segments of k supersteps, enabling frontier
+    #: checkpoint/resume and cooperative soft deadlines
+    ckpt_period: int = 0
     topology: object | None = None  # multi-host topology: not ported yet
     stack_mem_mb: int = 256        # per-miner stack memory ceiling (resolve())
     # session-level knob (never part of the resolved EngineConfig): programs
@@ -103,7 +111,12 @@ class RuntimeConfig:
             kernel_impl=resolve_impl(self.kernel_impl, device),
             kernel_blocks=None,
             trace_period=self.trace_period,
-            trace_cap=self.trace_cap,
+            # tracing on with no explicit ring size: supply the default cap
+            trace_cap=(
+                self.trace_cap
+                if self.trace_cap or not self.trace_period
+                else DEFAULT_TRACE_CAP
+            ),
             sync_period=self.sync_period,
             ckpt_period=self.ckpt_period,
             topology=self.topology,

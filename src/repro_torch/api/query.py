@@ -122,6 +122,15 @@ class ClosedFrequentQuery(Query):
         ph = session.run_phase(
             dataset, "test", min_sup=self.min_sup, delta=1.0, statistic=None,
         )
+        if ph.partial:  # soft deadline: emitted-so-far closed sets, no root
+            report = session._partial_mine_report(
+                dataset, [ph], pipeline="closed-frequent",
+                query_tag="closed-frequent", alpha=float("nan"),
+                statistic=None, t0=t0, min_sup=self.min_sup, k=1, lam=self.min_sup,
+            )
+            if self.top_k is not None:
+                report.results.patterns = report.results.patterns[: self.top_k]
+            return report
         k = ph.output.sig_count  # device emissions + the host-counted root
 
         # the root closed set (closure of the empty itemset) never transits
@@ -220,10 +229,19 @@ class TopKSignificantQuery(Query):
                 statistic=self.statistic,
             )
             phases.append(ph)
+            if ph.partial:  # soft deadline mid-probe: abort the bisection
+                return ph, -1
             return ph, ph.output.sig_count - (1 if root_p <= delta else 0)
 
         hi = 0.5
+        stopped = False
         ph_hi, c_hi = probe(hi)
+        if c_hi < 0:  # deadline hit inside the very first probe
+            return session._partial_mine_report(
+                dataset, phases, pipeline="topk", query_tag="topk",
+                alpha=float("nan"), statistic=self.statistic, t0=t0,
+                min_sup=1, k=1, delta=hi, lam=0,
+            )
         if c_hi >= self.k:
             lo = max(float(f.min()) / 2.0, 1e-290)
             for _ in range(self.max_probes - 1):
@@ -231,6 +249,9 @@ class TopKSignificantQuery(Query):
                     break
                 mid = math.sqrt(lo * hi)  # geometric: delta spans decades
                 ph, c = probe(mid)
+                if c < 0:  # deadline: keep the last accepted hi bracket
+                    stopped = True
+                    break
                 if c >= self.k:
                     hi, ph_hi, c_hi = mid, ph, c
                 else:
@@ -259,6 +280,10 @@ class TopKSignificantQuery(Query):
             k=1, delta=hi, filter_host=False, statistic=self.statistic,
         )
         results.patterns = results.patterns[: self.k]
+        if stopped:
+            # the accepted bracket's patterns are valid, but the bisection
+            # never refined delta to the exact k-th level — flag the answer
+            results.truncated = True
         # all probes are reported, with the ACCEPTED one last — phases[-1]
         # is the traversal that produced the returned patterns (rejected
         # lo-side probes are near-empty runs; telemetry readers key on -1)
@@ -277,6 +302,8 @@ class TopKSignificantQuery(Query):
             wall_s=time.perf_counter() - t0,
             statistic=self.statistic,
             query="topk",
+            partial=stopped,
+            ckpt_path=phases[-1].ckpt_path,
         )
 
 

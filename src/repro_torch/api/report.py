@@ -6,11 +6,6 @@ warm cache hit, wall/build time, and the raw `MineOutput`); `MineReport` is
 the full query answer: the LAMP quantities, the `ResultSet` of mined
 patterns, and per-phase reports.  `to_legacy_dict()` gives the JAX
 package's documented `lamp_distributed` dict.
-
-The superstep trace ring and segmented checkpointing are not ported yet
-(ROADMAP.md queue 1, items 7 and 8), so `trace` is always None and the
-fault-tolerance fields keep their defaults; they stay so that a report
-reads field for field like the JAX one.
 """
 
 from __future__ import annotations
@@ -19,6 +14,7 @@ import math
 from dataclasses import dataclass, field
 
 from repro_torch.core.engine import MineOutput
+from repro_torch.obs.trace import SuperstepTrace
 from repro_torch.results import ResultSet
 
 __all__ = ["PhaseReport", "MineReport"]
@@ -45,15 +41,21 @@ class PhaseReport:
     kernel_blocks: "tuple[int, int, int] | None" = None  # always None here
     item_tile: int = 0         # tile width of the db layout (0 = untiled)
     n_item_tiles: int = 1      # tiles per support-count sweep
-    trace: object | None = field(default=None, repr=False)  # not ported: None
-    trace_dropped: int = 0
+    # decoded device superstep timeline (DESIGN.md §9); present iff the
+    # session ran with trace_period > 0:
+    trace: SuperstepTrace | None = field(default=None, repr=False)
+    trace_dropped: int = 0     # sampled trace records lost to ring wrap
+    # per-schedule-round steal attribution (traced sessions only): round
+    # name -> {tier, steps, fired, donated, received}, and Jain's donation
+    # fairness by steal tier ("flat" on the one-level schedule)
     steal_by_round: dict | None = field(default=None, repr=False)
     tier_fairness: dict | None = None
-    partial: bool = False      # stopped at a soft deadline (not ported)
+    # fault-tolerance provenance (DESIGN.md §11; segmented runs only):
+    partial: bool = False      # stopped cooperatively at a segment boundary
     resumed: bool = False      # frontier restored from a checkpoint
-    ckpt_writes: int = 0
-    ckpt_bytes: int = 0
-    ckpt_path: str | None = None
+    ckpt_writes: int = 0       # frontier checkpoints written this phase
+    ckpt_bytes: int = 0        # total frontier payload bytes written
+    ckpt_path: str | None = None  # newest published step dir (None = none)
 
     @property
     def stats(self):
@@ -83,7 +85,10 @@ class MineReport:
     wall_s: float              # full query wall time
     statistic: str | None = "fisher"  # repro_torch.stats key; None = untested
     query: str = "significant"        # objective tag (api.query.QUERIES key)
-    partial: bool = False      # always False: no segmented run (item 8)
+    #: True when the query stopped at a soft deadline before completing —
+    #: `results` covers only the explored region (results.complete is
+    #: False) and `ckpt_path` names the frontier checkpoint to resume from
+    partial: bool = False
     ckpt_path: str | None = None
 
     @property

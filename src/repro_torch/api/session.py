@@ -27,15 +27,21 @@ A session runs one query at a time; the program cache is lock-protected,
 so `cache_info()`, `has_programs()`, `clear_cache()` and `warmup()` are
 safe to call from other threads while a query runs.
 
+With `RuntimeConfig.trace_period > 0` every phase report carries its
+decoded superstep trace; with `ckpt_period > 0` phases run segmented, and
+`run(ckpt_dir=, resume_from=, should_stop=)` checkpoints, resumes
+(elastically, onto this session's miner count) and stops at a soft
+deadline with a partial report (DESIGN.md §11).
+
 Not ported yet (ROADMAP.md queue 1): result streaming (`run(stream=...)`,
-item 9), checkpoint/resume (`ckpt_dir`, `resume_from`, `ckpt_period > 0`,
-item 8), the superstep trace ring (`trace_period > 0`, item 7) and
-multi-host topologies (`topology`, item 10); asking for them raises
-NotImplementedError.
+item 9) and multi-host topologies (`topology`, item 10); asking for them
+raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import math
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -50,8 +56,10 @@ from repro_torch.core.engine import (
     MineOutput,
     _check_ported,
     build_mine_step,
-    make_phase_args,
+    make_program_args,
     postprocess_phase,
+    run_segments,
+    segments_raw_output,
 )
 from repro_torch.core.lifeline import build_schedule
 from repro_torch.device import resolve_device
@@ -154,10 +162,8 @@ class MinerSession:
         self.runtime = runtime or RuntimeConfig()
         r = self.runtime
         # the engine's refusal of unported options, raised before any query
-        _check_ported(EngineConfig(
-            trace_period=r.trace_period, ckpt_period=r.ckpt_period,
-            topology=r.topology, kernel_blocks=r.kernel_blocks,
-        ))
+        _check_ported(EngineConfig(topology=r.topology,
+                                   kernel_blocks=r.kernel_blocks))
         self.tracer = tracer or SpanTracer()
         self.metrics = metrics or MetricsRegistry()
         m = self.metrics
@@ -178,6 +184,16 @@ class MinerSession:
         self._m_emit_drop = m.counter(
             "miner_emit_dropped_total",
             "pattern records lost to out_cap saturation")
+        self._m_trace_drop = m.counter(
+            "miner_trace_dropped_total",
+            "superstep trace records lost to ring wrap")
+        self._m_ckpt_write = m.histogram(
+            "miner_ckpt_write_seconds", "frontier checkpoint write latency")
+        self._m_ckpt_restore = m.histogram(
+            "miner_ckpt_restore_seconds",
+            "frontier checkpoint restore (incl. reshard) latency")
+        self._m_ckpt_bytes = m.counter(
+            "miner_ckpt_bytes_total", "frontier checkpoint payload bytes")
         if self.runtime.max_programs < 1:
             raise ValueError(
                 f"RuntimeConfig.max_programs must be >= 1, got "
@@ -193,6 +209,15 @@ class MinerSession:
         # guards the program cache + counters only (queries stay single-
         # threaded per session)
         self._cache_lock = threading.RLock()
+        # one-shot fault-tolerance state installed by run(ckpt_dir=...,
+        # resume_from=..., should_stop=...), consumed by run_phase, cleared
+        # in run()'s finally.  _phase_seq numbers the phases of the current
+        # query, so each checkpoints into its own "<seq>_<mode>" subdir and
+        # a resumed query lines its phases back up.
+        self._ckpt_dir = None
+        self._resume_from = None
+        self._should_stop = None
+        self._phase_seq = 0
 
     # -------------------------------------------------------------- programs
     def _schedule(self, cfg: EngineConfig):
@@ -316,8 +341,9 @@ class MinerSession:
 
         `target` is a `ShapeBucket` or a `Dataset` (its bucket is warmed).
         Returns the number of programs actually built (0 = already warm).
-        A program depends on the bucket and config only, so no data is
-        packed; `alpha` is accepted for the JAX signature and unused.
+        A program — classic or segmented, as `ckpt_period` selects —
+        depends on the bucket and config only, so no data is packed;
+        `alpha` is accepted for the JAX signature and unused.
         """
         if statistic is _USE_SESSION_DEFAULT:
             statistic = self.algorithm.statistic
@@ -373,31 +399,47 @@ class MinerSession:
             get_statistic(statistic)  # actionable ValueError on typos
         t0 = time.perf_counter()
         alpha = self.algorithm.alpha if alpha is None else alpha
+        partial = resumed = False
+        ckpt = {"writes": 0, "bytes": 0, "path": None}
         with self.tracer.span(f"phase:{mode}", dataset=dataset.name):
             cfg = self._resolve(dataset.bucket)
+            if (self._ckpt_dir or self._resume_from) and cfg.ckpt_period <= 0:
+                raise ValueError(
+                    "ckpt_dir/resume_from need the segmented program: set "
+                    "RuntimeConfig.ckpt_period > 0"
+                )
             with self.tracer.span("pack"):
-                args, ctx = make_phase_args(
-                    dataset.packed, n_proc=self.n_miners, cfg=cfg,
-                    stack_cap=cfg.stack_cap, mode=mode, alpha=alpha,
-                    min_sup=min_sup, delta=delta, statistic=statistic,
+                args, ctx = make_program_args(
+                    dataset.packed, n_proc=self.n_miners, cfg=cfg, mode=mode,
+                    alpha=alpha, min_sup=min_sup, delta=delta,
+                    statistic=statistic,
                 )
             # the statistic gates only the emission of "test"/"count2d";
             # lamp1/count programs are statistic-free, shared under None
             stat_key = statistic if mode in ("test", "count2d") else None
             entry, hit = self._program(mode, dataset.bucket, cfg, stat_key)
             with self.tracer.span("dispatch", cache_hit=hit):
-                raw = entry.compiled(*args)
+                if cfg.ckpt_period > 0:
+                    raw, partial, resumed = self._run_segmented(
+                        entry, dataset, cfg, mode=mode, alpha=alpha,
+                        delta=delta, statistic=statistic, ctx=ctx, ckpt=ckpt,
+                    )
+                else:
+                    raw = entry.compiled(*args)
             with self.tracer.span("postprocess"):
                 out = postprocess_phase(
                     raw, packed=dataset.packed, n_proc=self.n_miners, cfg=cfg,
                     mode=mode, thr=ctx["thr"], start_sup=ctx["start_sup"],
-                    delta=delta, statistic=statistic,
+                    delta=delta, statistic=statistic, partial=partial,
+                    schedule=self._schedule(cfg),
                 )
         entry.calls += 1
         wall_s = time.perf_counter() - t0
         self._m_phase.labels(mode=mode).observe(wall_s)
         if out.emit_dropped:
             self._m_emit_drop.inc(out.emit_dropped)
+        if out.trace_dropped:
+            self._m_trace_drop.inc(out.trace_dropped)
         return PhaseReport(
             mode=mode,
             wall_s=wall_s,
@@ -416,7 +458,71 @@ class MinerSession:
             kernel_blocks=cfg.kernel_blocks,
             item_tile=dataset.bucket.item_tile,
             n_item_tiles=dataset.bucket.n_tiles,
+            trace=out.trace,
+            trace_dropped=out.trace_dropped,
+            steal_by_round=(out.trace.steal_by_round()
+                            if out.trace is not None else None),
+            tier_fairness=(out.trace.tier_fairness()
+                           if out.trace is not None else None),
+            partial=partial,
+            resumed=resumed,
+            ckpt_writes=ckpt["writes"],
+            ckpt_bytes=ckpt["bytes"],
+            ckpt_path=ckpt["path"],
         )
+
+    def _run_segmented(self, entry, dataset, cfg, *, mode, alpha, delta,
+                       statistic, ctx, ckpt):
+        """Drive one phase through the segmented program (DESIGN.md §11).
+
+        Resumes the frontier from `self._resume_from` (elastically resharded
+        onto this session's miner count), checkpoints every segment into a
+        per-phase "<seq>_<mode>" subdir of `self._ckpt_dir`, and stops
+        cooperatively when `self._should_stop()` fires at a segment
+        boundary.  The carry stays on the device between segments and
+        comes to the host only for a checkpoint write.  Returns (raw
+        10-tuple, partial, resumed).
+        """
+        from repro_torch.ckpt import mining as ckpt_mining
+
+        tag = f"{self._phase_seq:02d}_{mode}"
+        self._phase_seq += 1
+        provenance = ckpt_mining.make_provenance(
+            dataset.packed, mode=mode, statistic=statistic, alpha=alpha,
+            start_sup=ctx["start_sup"], delta=delta,
+        )
+        carry = ctx["carry0"]
+        resumed = False
+        if self._resume_from:
+            t0r = time.perf_counter()
+            restored = ckpt_mining.restore_frontier(
+                os.path.join(self._resume_from, tag), provenance=provenance,
+                n_proc=self.n_miners, cfg=cfg, mode=mode,
+            )
+            self._m_ckpt_restore.observe(time.perf_counter() - t0r)
+            if restored is not None:
+                carry = restored
+                resumed = True
+        on_segment = None
+        if self._ckpt_dir:
+            phase_dir = os.path.join(self._ckpt_dir, tag)
+
+            def on_segment(c):
+                t0w = time.perf_counter()
+                path, nbytes = ckpt_mining.save_frontier(
+                    c.to_fields(), phase_dir, provenance=provenance,
+                )
+                self._m_ckpt_write.observe(time.perf_counter() - t0w)
+                self._m_ckpt_bytes.inc(nbytes)
+                ckpt["writes"] += 1
+                ckpt["bytes"] += nbytes
+                ckpt["path"] = path
+
+        carry, partial = run_segments(
+            entry.compiled, carry, cfg=cfg, static=ctx["static"],
+            should_stop=self._should_stop, on_segment=on_segment,
+        )
+        return segments_raw_output(carry), partial, resumed
 
     # --------------------------------------------------------------- queries
     def run(self, dataset: Dataset, query: Query, *, stream=None,
@@ -424,10 +530,19 @@ class MinerSession:
             should_stop=None) -> MineReport:
         """Execute one first-class query object (api.query).
 
-        `stream`, `ckpt_dir` and `resume_from` raise NotImplementedError
-        (ROADMAP.md queue 1, items 9 and 8).  `should_stop` is ignored, as
-        the JAX session ignores it when ckpt_period == 0: the unsegmented
-        program has no boundary to stop at.
+        Fault tolerance (DESIGN.md §11; requires RuntimeConfig.ckpt_period
+        > 0): `ckpt_dir` checkpoints each phase's frontier every segment;
+        `resume_from` (usually a previous run's ckpt_dir, written by this
+        package or the JAX one) restores every phase that has a valid
+        checkpoint — elastically resharded onto this session's miner count
+        — and the resumed query's ResultSet is bit-identical to an
+        uninterrupted run; `should_stop()` polled at segment boundaries
+        stops the query cooperatively, returning a partial MineReport
+        (report.partial, results.complete == False) plus the checkpoint
+        path to resume from.  `should_stop` is ignored when ckpt_period ==
+        0 (the classic loop has no boundary to stop at).
+
+        `stream` raises NotImplementedError (ROADMAP.md queue 1, item 9).
         """
         if not isinstance(query, Query):
             raise TypeError(
@@ -437,13 +552,25 @@ class MinerSession:
         if stream is not None:
             raise _unported("run(stream=...): streamed top-k delivery", 9,
                             "serving")
-        if ckpt_dir or resume_from:
-            raise _unported("ckpt_dir/resume_from: frontier checkpoints", 8,
-                            "fault tolerance")
+        if (ckpt_dir or resume_from) and not self.runtime.ckpt_period:
+            raise ValueError(
+                "ckpt_dir/resume_from need the segmented program: set "
+                "RuntimeConfig.ckpt_period > 0"
+            )
         t0 = time.perf_counter()
-        with self.tracer.span(f"query:{type(query).__name__}",
-                              dataset=dataset.name):
-            report = query.run(self, dataset)
+        self._ckpt_dir = ckpt_dir
+        self._resume_from = resume_from
+        self._should_stop = should_stop if self.runtime.ckpt_period else None
+        self._phase_seq = 0
+        try:
+            with self.tracer.span(f"query:{type(query).__name__}",
+                                  dataset=dataset.name):
+                report = query.run(self, dataset)
+        finally:
+            self._ckpt_dir = None
+            self._resume_from = None
+            self._should_stop = None
+            self._phase_seq = 0
         self._m_query.labels(query=report.query).observe(
             time.perf_counter() - t0
         )
@@ -538,6 +665,57 @@ class MinerSession:
                             [n_pos if dataset.labels is not None else 0]]),
         )
 
+    def _partial_mine_report(
+        self, dataset: Dataset, phases, *, pipeline: str, query_tag: str,
+        alpha: float, statistic: str | None, t0: float, min_sup: int = 0,
+        k: int = 0, delta: float = float("nan"), lam: int | None = None,
+        filter_host: bool = False,
+    ) -> MineReport:
+        """A MineReport for a query stopped at a soft deadline (§11).
+
+        The last phase is the one that stopped; its emitted-so-far records
+        (modes "test"/"count2d") become a truncated ResultSet — the root
+        record is *not* folded in (the run never finished deciding it).
+        Phases that emit nothing (lamp1/count) yield an empty truncated
+        ResultSet.  LAMP quantities the stopped staging never derived stay
+        at their NaN/0 placeholders.
+        """
+        from repro_torch.results import ResultSet
+
+        ph = phases[-1]
+        out = ph.output
+        if out.sig_occ is not None and len(out.sig_occ):
+            results = self._build_results(
+                dataset, out, alpha=alpha, min_sup=min_sup, k=max(k, 1),
+                delta=(alpha if math.isnan(delta) else delta),
+                filter_host=filter_host, statistic=statistic,
+            )
+        else:
+            results = ResultSet(
+                n_transactions=dataset.n_transactions, n_pos=dataset.n_pos,
+                alpha=alpha, min_sup=min_sup, correction_factor=max(k, 1),
+                delta=delta, statistic=statistic,
+                item_names=dataset.item_names,
+            )
+        results.truncated = True
+        return MineReport(
+            dataset=dataset.name,
+            pipeline=pipeline,
+            alpha=alpha,
+            lambda_final=ph.lam_final if lam is None else lam,
+            min_sup=min_sup,
+            correction_factor=k,
+            delta=delta,
+            n_significant=out.sig_count,
+            results=results,
+            phases=tuple(phases),
+            wall_s=time.perf_counter() - t0,
+            statistic=statistic,
+            query=query_tag,
+            partial=True,
+            ckpt_path=ph.ckpt_path,
+        )
+
 
 # -------------------------------------------------------------- pipelines
 def _pipeline_three_phase(session: MinerSession, dataset: Dataset,
@@ -546,16 +724,33 @@ def _pipeline_three_phase(session: MinerSession, dataset: Dataset,
     t0 = time.perf_counter()
     alpha, statistic = query.alpha, query.statistic
     ph1 = session.run_phase(dataset, "lamp1", alpha=alpha, statistic=statistic)
+    if ph1.partial:  # soft deadline mid-lambda-search: nothing emitted yet
+        return session._partial_mine_report(
+            dataset, [ph1], pipeline="three_phase", query_tag="significant",
+            alpha=alpha, statistic=statistic, t0=t0,
+        )
     min_sup = max(ph1.lam_final - 1, session.algorithm.min_sup_floor)
 
     # phase 2: exact closed-set count at min_sup
     ph2 = session.run_phase(dataset, "count", min_sup=min_sup, alpha=alpha,
                             statistic=statistic)
+    if ph2.partial:
+        return session._partial_mine_report(
+            dataset, [ph1, ph2], pipeline="three_phase",
+            query_tag="significant", alpha=alpha, statistic=statistic, t0=t0,
+            min_sup=min_sup, lam=ph1.lam_final,
+        )
     k = int(ph2.output.hist[min_sup:].sum())
     delta = alpha / max(k, 1)
     # phase 3: significance testing at delta
     ph3 = session.run_phase(dataset, "test", min_sup=min_sup, delta=delta,
                             alpha=alpha, statistic=statistic)
+    if ph3.partial:  # records emitted so far are already delta-filtered
+        return session._partial_mine_report(
+            dataset, [ph1, ph2, ph3], pipeline="three_phase",
+            query_tag="significant", alpha=alpha, statistic=statistic, t0=t0,
+            min_sup=min_sup, k=k, delta=delta, lam=ph1.lam_final,
+        )
     # the device already filtered at delta; reconstruct + exact stats only
     # (the root closed set is appended iff the statistic counts it — it is
     # in ph3's n_sig exactly when significant, so list and count agree)
@@ -596,11 +791,24 @@ def _pipeline_fused23(session: MinerSession, dataset: Dataset,
     alpha, statistic = query.alpha, query.statistic
     stat = get_statistic(statistic)
     ph1 = session.run_phase(dataset, "lamp1", alpha=alpha, statistic=statistic)
+    if ph1.partial:  # soft deadline mid-lambda-search: nothing emitted yet
+        return session._partial_mine_report(
+            dataset, [ph1], pipeline="fused23", query_tag="significant",
+            alpha=alpha, statistic=statistic, t0=t0,
+        )
     min_sup = max(ph1.lam_final - 1, session.algorithm.min_sup_floor)
 
     n, n_pos = dataset.n_transactions, dataset.n_pos
     ph2 = session.run_phase(dataset, "count2d", min_sup=min_sup, delta=alpha,
                             alpha=alpha, statistic=statistic)
+    if ph2.partial:  # emitted-so-far records are an alpha-level superset;
+        # the exact final delta is unknown, so keep the superset (k=0 tags
+        # the correction as underived)
+        return session._partial_mine_report(
+            dataset, [ph1, ph2], pipeline="fused23", query_tag="significant",
+            alpha=alpha, statistic=statistic, t0=t0, min_sup=min_sup,
+            lam=ph1.lam_final, delta=alpha, filter_host=True,
+        )
     h2 = ph2.output.hist2d
     sups_grid = np.arange(n + 1)
     mask = (h2 > 0) & (sups_grid[:, None] >= min_sup)

@@ -1,8 +1,8 @@
 """BSP miner: LCM+LAMP with lifeline work stealing (paper §4), one device.
 
-Counterpart of `repro.core.engine` (its classic, unsegmented path).  The P
-logical miners are a leading tensor dim on one device; each superstep of
-the host loop in `build_mine_step` runs the three phase modules:
+Counterpart of `repro.core.engine`.  The P logical miners are a leading
+tensor dim on one device; each superstep of the host loop in
+`build_mine_step` runs the three phase modules:
 
   1. EXPAND   core/expand.py — pop up to `expand_batch` nodes per miner; one
               popcount-GEMM (the CUDA kernel on the card) gives every
@@ -14,8 +14,21 @@ the host loop in `build_mine_step` runs the three phase modules:
 
 `lax.while_loop` becomes a host loop that reads the census once per
 superstep.  Results are bit-identical to the JAX engine at the same P and
-lifeline seed: the same histograms, lambda, supersteps, per-miner stats and
-emitted records.
+lifeline seed: the same histograms, lambda, supersteps, per-miner stats,
+emitted records and superstep trace.
+
+With `trace_period > 0` every sampled superstep writes one [N_FIELDS]
+record per miner into a [P, trace_cap, N_FIELDS] int32 ring on the device
+(repro_torch.obs.trace); the superstep counter is a host int, so unsampled
+steps do no trace work at all.
+
+With `ckpt_period > 0` the pass runs *segmented* (DESIGN.md §11): the loop
+stops every ckpt_period supersteps, where `run_segments` fires the
+engine.superstep fault point, hands the carry to a checkpoint writer and
+polls a cooperative stop.  The carry stays on the device between segments;
+`_Carry.to_fields`/`from_fields` map it to and from the JAX package's
+host carry dict (`CARRY_FIELDS`), which is the checkpoint format both
+packages share.
 
 Modes:
   lamp1   dynamic lambda by support increase  -> lambda_final
@@ -24,21 +37,21 @@ Modes:
   count2d static min_sup (+delta=alpha)       -> 2-D (sup x pos-sup) histogram
                                                  + alpha-level pattern records
 
-Not ported yet (ROADMAP.md): the superstep trace ring (trace_period > 0),
-the segmented checkpointable program (ckpt_period > 0) and multi-host
-topologies; a config asking for them raises NotImplementedError.
+Not ported yet (ROADMAP.md queue 1, item 10): multi-host topologies; a
+config asking for one raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.support_count.ops import resolve_impl
+from repro_torch.obs.trace import N_FIELDS, SuperstepTrace, decode_trace
 from repro_torch.stats import get_statistic
 
 from .bitmap import (
@@ -83,24 +96,32 @@ class EngineConfig:
     kernel_impl: str = "auto"      # "auto" | ops.VALID_IMPLS ("ref", "cuda")
     #: the JAX Pallas kernel's block triple; the CUDA kernel's is fixed
     kernel_blocks: tuple[int, int, int] | None = None
-    trace_period: int = 0          # superstep trace ring: not ported yet
-    trace_cap: int = 0
+    #: superstep trace sampling period: 0 = off; k > 0 records one
+    #: [N_FIELDS] int32 record per miner every k-th superstep into a
+    #: [P, trace_cap, N_FIELDS] device ring (DESIGN.md §9)
+    trace_period: int = 0
+    trace_cap: int = 0             # ring slots; required > 0 when tracing
     sync_period: int = 4           # supersteps between lambda/histogram syncs
-    ckpt_period: int = 0           # segmented program: not ported yet
+    #: checkpoint cadence (DESIGN.md §11): 0 = the classic whole-phase
+    #: loop; k > 0 runs the pass in segments of k supersteps, at whose
+    #: boundaries the frontier can be checkpointed and a cooperative stop
+    #: polled.  Part of the session's program cache key.
+    ckpt_period: int = 0
     topology: object | None = None  # multi-host topology: not ported yet
 
 
+#: the BSP carry's leaf names, in carry-tuple order — the JAX package's
+#: frontier schema (`repro.core.engine.CARRY_FIELDS`), shared by the
+#: segment loop and the checkpoint mapping (ckpt/mining.py).  Per-miner
+#: scalars (sp, head, lam, t, out_ptr, n_sig, work) are [P] vectors.
+CARRY_FIELDS = (
+    "occ_stack", "meta", "sp", "head", "hist", "hist_snap", "g_hist_acc",
+    "hist2d", "lam", "t", "stats", "out_occ", "out_meta", "out_ptr",
+    "n_sig", "trace", "work",
+)
+
+
 def _check_ported(cfg: EngineConfig) -> None:
-    if cfg.trace_period > 0:
-        raise NotImplementedError(
-            "trace_period > 0: the superstep trace ring is not ported yet "
-            "(ROADMAP.md queue 1, item 7: observability)"
-        )
-    if cfg.ckpt_period > 0:
-        raise NotImplementedError(
-            "ckpt_period > 0: the segmented checkpointable program is not "
-            "ported yet (ROADMAP.md queue 1, item 8: fault tolerance)"
-        )
     if cfg.topology is not None:
         raise NotImplementedError(
             "topology: multi-host meshes are not ported yet (ROADMAP.md "
@@ -133,12 +154,17 @@ class MineOutput:
     sig_count: int = 0             # mode="test"
     sig_sup: np.ndarray | None = None
     sig_pos_sup: np.ndarray | None = None
+    trace: SuperstepTrace | None = None  # decoded ring (trace_period > 0)
     hist2d: np.ndarray | None = None  # [N+1, Npos+1] (mode="count2d")
     # emitted pattern records (modes "test"/"count2d"):
     sig_occ: np.ndarray | None = None   # [K, W]u32 occurrence bitmaps
     sig_core: np.ndarray | None = None  # [K] core item of the emitting node
     emit_dropped: int = 0          # records lost to out_cap saturation
+    trace_dropped: int = 0         # sampled trace records lost to ring wrap
     db_bits: np.ndarray | None = None  # [M, W]u32 packed DB (reused downstream)
+    #: False when the pass stopped cooperatively at a segment boundary
+    #: (soft deadline) before draining the frontier — counts/records cover
+    #: only the explored region (DESIGN.md §11)
     complete: bool = True
 
 
@@ -344,12 +370,14 @@ def deal_roots(packed: PackedProblem, n_proc: int, stack_cap: int, min_sup: int 
 
 
 class _Carry:
-    """The BSP carry of all P miners: [P, ...] tensors on one device (the
-    stacks and record buffers with a trailing spill row), lambda a 0-d
-    tensor — it is uniform across miners, as in the JAX engine."""
+    """The BSP carry of all P miners on one device: [P, ...] tensors (the
+    stacks and record buffers with a trailing spill row, the counters
+    int64), lambda and the replicated lamp1 accumulator `g_hist_acc` held
+    once — they are uniform across miners, as in the JAX engine — and the
+    superstep counter `t` and the boundary census `work` as host ints."""
 
     def __init__(self, *, init_occ, init_meta, init_sp, lam0, nb, snb, nb2,
-                 out_cap, device):
+                 out_cap, trace_cap, device):
         P, _, w = init_occ.shape
         i64 = torch.int64
         spill = torch.zeros((P, 1, w), dtype=torch.int32, device=device)
@@ -365,11 +393,85 @@ class _Carry:
         self.g_hist_acc = torch.zeros(snb, dtype=i64, device=device)
         self.hist2d = torch.zeros((P, nb2), dtype=i64, device=device)
         self.lam = torch.tensor(int(lam0), dtype=i64, device=device)
+        self.t = 0
         self.stats = torch.zeros((P, _NSTAT), dtype=i64, device=device)
         self.out_occ = torch.zeros((P, out_cap + 1, w), dtype=torch.int32, device=device)
         self.out_meta = torch.zeros((P, out_cap + 1, 3), dtype=torch.int32, device=device)
         self.out_ptr = torch.zeros(P, dtype=i64, device=device)
         self.n_sig = torch.zeros(P, dtype=i64, device=device)
+        # a 1-slot dummy when tracing is off, as in the JAX carry
+        self.trace = torch.zeros((P, max(trace_cap, 1), N_FIELDS), dtype=torch.int32,
+                                 device=device)
+        # miners with non-empty stacks: the census the loop condition reads
+        self.work = int((np.asarray(init_sp) > 0).sum())
+
+    def to_fields(self, names=CARRY_FIELDS) -> dict[str, np.ndarray]:
+        """The JAX package's host carry dict (leaves `names`): spill rows
+        dropped, counters cast to int32 with wraparound, words as uint32,
+        per-miner scalars and the replicated leaves as [P] / [P, SNB]."""
+        P = self.sp.shape[0]
+        cap, out_cap = self.occ_stack.shape[1] - 1, self.out_occ.shape[1] - 1
+
+        def i32(x):
+            return x.to(torch.int32).cpu().numpy()
+
+        leaves = {
+            "occ_stack": lambda: tensor_to_words(self.occ_stack[:, :cap]),
+            "meta": lambda: self.meta[:, :cap].cpu().numpy(),
+            "sp": lambda: i32(self.sp),
+            "head": lambda: i32(self.head),
+            "hist": lambda: i32(self.hist),
+            "hist_snap": lambda: i32(self.hist_snap),
+            "g_hist_acc": lambda: np.tile(i32(self.g_hist_acc), (P, 1)),
+            "hist2d": lambda: i32(self.hist2d),
+            "lam": lambda: np.full(P, int(self.lam), np.int32),
+            "t": lambda: np.full(P, self.t, np.int32),
+            "stats": lambda: i32(self.stats),
+            "out_occ": lambda: tensor_to_words(self.out_occ[:, :out_cap]),
+            "out_meta": lambda: self.out_meta[:, :out_cap].cpu().numpy(),
+            "out_ptr": lambda: i32(self.out_ptr),
+            "n_sig": lambda: i32(self.n_sig),
+            "trace": lambda: self.trace.cpu().numpy(),
+            "work": lambda: np.full(P, self.work, np.int32),
+        }
+        return {k: leaves[k]() for k in names}
+
+    @classmethod
+    def from_fields(cls, d: dict, device) -> "_Carry":
+        """The inverse of `to_fields`: a carry on `device` from a host carry
+        dict (CARRY_FIELDS), written by either package."""
+        st = cls.__new__(cls)
+        P, _, w = d["occ_stack"].shape
+
+        def i64(a):
+            return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+        def with_spill(x, cols):
+            return torch.cat([x, torch.zeros((P, 1, cols), dtype=torch.int32,
+                                             device=device)], dim=1)
+
+        def i32(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+        st.occ_stack = with_spill(words_to_tensor(d["occ_stack"], device), w)
+        st.meta = with_spill(i32(d["meta"]), 4)
+        st.sp, st.head = i64(d["sp"]), i64(d["head"])
+        st.hist, st.hist_snap = i64(d["hist"]), i64(d["hist_snap"])
+        st.g_hist_acc = i64(d["g_hist_acc"][0])
+        st.hist2d = i64(d["hist2d"])
+        st.lam = torch.tensor(int(d["lam"][0]), dtype=torch.int64, device=device)
+        st.t = int(d["t"][0])
+        st.stats = i64(d["stats"])
+        st.out_occ = with_spill(words_to_tensor(d["out_occ"], device), w)
+        st.out_meta = with_spill(i32(d["out_meta"]), 3)
+        st.out_ptr, st.n_sig = i64(d["out_ptr"]), i64(d["n_sig"])
+        st.trace = i32(d["trace"])
+        st.work = int(d["work"][0])
+        return st
+
+
+def _thr_tensor(thr, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(thr, np.int64)).to(device)
 
 
 def build_mine_step(
@@ -380,68 +482,119 @@ def build_mine_step(
     """Wire the superstep phases into the BSP program for P miners.
 
     `n`/`n_pos`/`m` are the program dims; the dataset's actual counts are
-    runtime arguments of the returned program.  The program runs the host
-    superstep loop to termination and returns the raw 10-tuple of numpy
-    arrays that `postprocess_phase` takes (the JAX program's outputs; the
-    trace slot is always None).
+    runtime arguments of the returned program.  With ckpt_period == 0 the
+    program runs the host superstep loop to termination and returns the raw
+    10-tuple of numpy arrays that `postprocess_phase` takes (the JAX
+    program's outputs).  With ckpt_period > 0 it is the segment program
+    `seg(carry, db_tiles, pos_mask, thr, delta, n_act, npos_act, t_stop)`,
+    which advances a `_Carry` in place to superstep t_stop (or until the
+    frontier drains) and returns it.
     """
     _check_ported(cfg)
+    if cfg.trace_period < 0:
+        raise ValueError(f"trace_period must be >= 0, got {cfg.trace_period}")
+    if cfg.trace_period and cfg.trace_cap <= 0:
+        raise ValueError(
+            "trace_period > 0 requires trace_cap > 0 (the ring needs slots); "
+            "RuntimeConfig.resolve() defaults the cap when only the period "
+            "is set"
+        )
     device = torch.device(device)
     NB = n + 2
     NB2 = (n + 1) * (n_pos + 1) if mode == "count2d" else 1
     SNB = NB if mode == "lamp1" else 1
     n_proc = schedule.n_proc
+    period, tcap = cfg.trace_period, cfg.trace_cap
     kernel_impl = resolve_impl(cfg.kernel_impl, device)
     expand = build_expand(n=n, n_pos=n_pos, m=m, cfg=cfg, stack_cap=stack_cap,
                           mode=mode, kernel_impl=kernel_impl, statistic=statistic)
     steal_round = build_steal_round(schedule, cfg, stack_cap=stack_cap, device=device)
     global_sync = build_global_sync(mode=mode, sync_period=cfg.sync_period)
+    no_steal = torch.zeros(n_proc, dtype=torch.int64, device=device)
 
-    def program(init_occ, init_meta, init_sp, db_tiles, pos_mask, thr, lam0,
-                delta, n_act, npos_act):
-        st = _Carry(init_occ=init_occ, init_meta=init_meta, init_sp=init_sp,
-                    lam0=lam0, nb=NB, snb=SNB, nb2=NB2, out_cap=cfg.out_cap,
-                    device=device)
-        thr_t = torch.from_numpy(np.asarray(thr, np.int64)).to(device)
-        delta_t = torch.tensor(delta, dtype=torch.float32, device=device)
-        t = 0
-        # miners with work, read back once per superstep: the loop's only
-        # device -> host sync
-        work = n_proc - int(hunger_census(st.sp).sum())
-        while work > 0 and t < cfg.max_steps:
-            st.n_sig += expand(st, db_tiles, pos_mask, delta_t, n_act, npos_act)
+    def record(st, t, stats_before, n_hungry, sig_cnt, k_given, k_recv):
+        # written *before* global_sync, so LAMBDA is the value in force
+        # during this superstep's expand; volumes are this-step stat deltas
+        deltas = st.stats - stats_before
+        fired = (n_hungry > 0) & bool(cfg.steal_enabled)
+        rec = torch.stack([
+            torch.full((n_proc,), t, dtype=torch.int64, device=device),  # STEP
+            st.lam.expand(n_proc),                    # LAMBDA
+            st.sp,                                    # DEPTH
+            n_hungry.expand(n_proc),                  # HUNGRY
+            fired.long().expand(n_proc),              # FIRED
+            deltas[:, Stat.POPPED],                   # POPPED
+            deltas[:, Stat.PUSHED],                   # PUSHED
+            deltas[:, Stat.CLOSED],                   # CLOSED
+            sig_cnt,                                  # EMITTED
+            k_given,                                  # DONATED
+            k_recv,                                   # RECEIVED
+        ], dim=1).to(torch.int32)
+        idx = t // period
+        st.trace[:, idx % tcap] = rec
+        if idx >= tcap:   # the ring wrapped over the oldest record
+            st.stats[:, Stat.TRACE_DROPPED] += 1
+
+    def run_to(st, t_stop, db_tiles, pos_mask, thr_t, delta_t, n_act, npos_act):
+        # `work` (miners with work) is read back once per superstep: the
+        # loop's only device -> host sync
+        while st.work > 0 and st.t < t_stop:
+            t = st.t
+            sampled = period > 0 and t % period == 0
+            if sampled:
+                stats_before = st.stats.clone()
+            sig_cnt = expand(st, db_tiles, pos_mask, delta_t, n_act, npos_act)
+            st.n_sig += sig_cnt
             # the hunger census: REQUEST side of the steal exchange and the
             # exact termination test (steals only redistribute work)
             hungry_vec = hunger_census(st.sp)
             n_hungry = hungry_vec.sum()
+            k_given = k_recv = no_steal
             if cfg.steal_enabled:
-                got, gave, k_given, _k_recv = steal_round(t, hungry_vec, st)
+                got, gave, k_given, k_recv = steal_round(t, hungry_vec, st)
                 st.stats[:, Stat.STEALS_GOT] += got
                 st.stats[:, Stat.GIVES] += gave
                 st.stats[:, Stat.STOLEN_NODES] += k_given
                 st.stats[:, Stat.STEAL_ROUNDS] += (n_hungry > 0).long()
             st.stats[:, Stat.IDLE_STEPS] += (st.sp == 0).long()
             st.stats[:, Stat.SUPERSTEPS] += 1
+            if sampled:
+                record(st, t, stats_before, n_hungry, sig_cnt, k_given, k_recv)
             global_sync(t, st, thr_t)
-            work = n_proc - int(n_hungry)
-            t += 1
+            st.work = n_proc - int(n_hungry)
+            st.t = t + 1
+        return st
+
+    def program(init_occ, init_meta, init_sp, db_tiles, pos_mask, thr, lam0,
+                delta, n_act, npos_act):
+        st = _Carry(init_occ=init_occ, init_meta=init_meta, init_sp=init_sp,
+                    lam0=lam0, nb=NB, snb=SNB, nb2=NB2, out_cap=cfg.out_cap,
+                    trace_cap=tcap, device=device)
+        delta_t = torch.tensor(delta, dtype=torch.float32, device=device)
+        run_to(st, cfg.max_steps, db_tiles, pos_mask, _thr_tensor(thr, device),
+               delta_t, n_act, npos_act)
         # one exact full-histogram sum at termination
         i32 = np.int32
         out_cap = cfg.out_cap
         return (
             st.hist.sum(dim=0).cpu().numpy().astype(i32),
             int(st.lam),
-            t,
+            st.t,
             st.stats.cpu().numpy().astype(i32),
             tensor_to_words(st.out_occ[:, :out_cap]),
             st.out_meta[:, :out_cap].cpu().numpy(),
             st.out_ptr.cpu().numpy().astype(i32),
             int(st.n_sig.sum()),
-            None,
+            st.trace.cpu().numpy() if period else None,
             st.hist2d.sum(dim=0).cpu().numpy().astype(i32),
         )
 
-    return program
+    def seg_program(st, db_tiles, pos_mask, thr, delta, n_act, npos_act, t_stop):
+        delta_t = torch.tensor(delta, dtype=torch.float32, device=device)
+        return run_to(st, t_stop, db_tiles, pos_mask, _thr_tensor(thr, device),
+                      delta_t, n_act, npos_act)
+
+    return seg_program if cfg.ckpt_period > 0 else program
 
 
 def make_phase_args(
@@ -474,6 +627,156 @@ def make_phase_args(
     return args, dict(thr=thr_pad, start_sup=start_sup)
 
 
+def init_carry(
+    packed: PackedProblem,
+    *,
+    n_proc: int,
+    cfg: EngineConfig,
+    mode: str,
+    init_occ: np.ndarray,
+    init_meta: np.ndarray,
+    init_sp: np.ndarray,
+    start_sup: int,
+) -> dict[str, np.ndarray]:
+    """Host-side initial BSP carry for the segmented program (the JAX
+    package's `init_carry`, leaf for leaf).
+
+    A dict keyed by CARRY_FIELDS, every leaf a global [P, ...] numpy array
+    (per-miner scalars as [P] vectors), holding exactly what the classic
+    program starts its loop from, including the boundary census `work`.
+    """
+    NB = packed.n_pad + 2
+    SNB = NB if mode == "lamp1" else 1
+    NB2 = (packed.n_pad + 1) * (packed.npos_pad + 1) if mode == "count2d" else 1
+    w = init_occ.shape[-1]
+    i32, P_ = np.int32, n_proc
+    return {
+        "occ_stack": np.ascontiguousarray(init_occ),
+        "meta": np.ascontiguousarray(init_meta),
+        "sp": np.ascontiguousarray(init_sp),
+        "head": np.zeros(P_, i32),
+        "hist": np.zeros((P_, NB), i32),
+        "hist_snap": np.zeros((P_, SNB), i32),
+        "g_hist_acc": np.zeros((P_, SNB), i32),
+        "hist2d": np.zeros((P_, NB2), i32),
+        "lam": np.full(P_, start_sup, i32),
+        "t": np.zeros(P_, i32),
+        "stats": np.zeros((P_, _NSTAT), i32),
+        "out_occ": np.zeros((P_, cfg.out_cap, w), np.uint32),
+        "out_meta": np.zeros((P_, cfg.out_cap, 3), i32),
+        "out_ptr": np.zeros(P_, i32),
+        "n_sig": np.zeros(P_, i32),
+        "trace": np.zeros((P_, max(cfg.trace_cap, 1), N_FIELDS), i32),
+        "work": np.full(P_, int((np.asarray(init_sp) > 0).sum()), i32),
+    }
+
+
+def make_program_args(
+    packed: PackedProblem,
+    *,
+    n_proc: int,
+    cfg: EngineConfig,
+    mode: str,
+    alpha: float,
+    min_sup: int,
+    delta: float,
+    statistic: str | None = "fisher",
+):
+    """`make_phase_args`, shaped for whichever program cfg selects (cfg is
+    resolved: its stack_cap is an int).
+
+    ckpt_period == 0: identical to `make_phase_args`.  ckpt_period > 0:
+    ctx gains `carry0` (the initial host carry dict) and `static` (the
+    operands `run_segments` passes every segment: db_tiles, pos_mask, thr,
+    delta, n_act, npos_act — lam0 rides the carry instead).
+    """
+    args, ctx = make_phase_args(
+        packed, n_proc=n_proc, cfg=cfg, stack_cap=cfg.stack_cap, mode=mode,
+        alpha=alpha, min_sup=min_sup, delta=delta, statistic=statistic,
+    )
+    if cfg.ckpt_period <= 0:
+        return args, ctx
+    carry0 = init_carry(
+        packed, n_proc=n_proc, cfg=cfg, mode=mode,
+        init_occ=args[0], init_meta=args[1], init_sp=args[2],
+        start_sup=ctx["start_sup"],
+    )
+    static = args[3:6] + args[7:10]
+    return args, dict(ctx, carry0=carry0, static=static)
+
+
+def run_segments(
+    dispatch,
+    carry,
+    *,
+    cfg: EngineConfig,
+    static: tuple,
+    should_stop=None,
+    on_segment=None,
+):
+    """Host loop driving the segmented program to frontier exhaustion.
+
+    `carry` is a host carry dict (CARRY_FIELDS: `init_carry`, or a restored
+    frontier), moved once to the device of `static`'s database, or a
+    `_Carry` already there.  Each iteration runs one ckpt_period-superstep
+    segment, fires the engine.superstep fault point, then hands the
+    device carry to `on_segment` (the checkpoint writer, which pulls it to
+    the host with `to_fields()`) — in that order, so an injected death
+    loses the running segment's checkpoint, the harshest recovery case.
+    `should_stop` is polled at the loop bottom only, and only while the
+    frontier is undrained: a cooperative stop always has at least one
+    segment of progress behind it.  Between segments the carry stays on
+    the device; the loop reads only its host ints `t` and `work`.
+
+    Returns (carry, partial), the carry a `_Carry`.
+    """
+    from repro_torch.testing import faults
+
+    st = carry if isinstance(carry, _Carry) else _Carry.from_fields(
+        carry, static[0].device)
+    partial = False
+    while st.work > 0 and st.t < cfg.max_steps:
+        t_stop = min(st.t + cfg.ckpt_period, cfg.max_steps)
+        st = dispatch(st, *static, t_stop)
+        faults.check("engine.superstep", t=st.t)
+        if on_segment is not None:
+            on_segment(st)
+        if (
+            should_stop is not None
+            and st.work > 0
+            and st.t < cfg.max_steps
+            and should_stop()
+        ):
+            partial = True
+            break
+    return st, partial
+
+
+#: the carry leaves the classic program's raw output is made of
+_RAW_FIELDS = ("hist", "hist2d", "n_sig", "lam", "t", "stats", "out_occ",
+               "out_meta", "out_ptr", "trace")
+
+
+def segments_raw_output(carry):
+    """Terminal carry (a `_Carry` or a host carry dict) -> the classic
+    program's 10-tuple raw output.
+
+    The host stands in for the classic program's termination sums, in
+    numpy int32: addition mod 2^32 commutes, so the sums are bit-identical
+    to the JAX device reduction regardless of miner count or order.
+    """
+    if isinstance(carry, _Carry):
+        carry = carry.to_fields(_RAW_FIELDS)
+    g_hist = carry["hist"].sum(axis=0, dtype=np.int32)
+    g_hist2d = carry["hist2d"].sum(axis=0, dtype=np.int32)
+    g_sig = carry["n_sig"].sum(dtype=np.int32)
+    return (
+        g_hist, carry["lam"][0], carry["t"][0], carry["stats"],
+        carry["out_occ"], carry["out_meta"], carry["out_ptr"], g_sig,
+        carry["trace"], g_hist2d,
+    )
+
+
 def postprocess_phase(
     raw_out,
     *,
@@ -485,13 +788,17 @@ def postprocess_phase(
     start_sup: int,
     delta: float,
     statistic: str | None = "fisher",
+    partial: bool = False,
+    schedule: LifelineSchedule | None = None,
 ) -> MineOutput:
     """Program output -> MineOutput: slice padding, fold in the root closed
-    set, gather emitted pattern records, surface overflow (the JAX
-    `postprocess_phase`, host numpy)."""
+    set, gather emitted pattern records, decode the trace ring, surface
+    overflow (the JAX `postprocess_phase`, host numpy).  `schedule` (when
+    given) keys the decoded trace's per-round steal attribution by the
+    round names the pass cycled."""
     n, n_pos = packed.n, packed.n_pos
     root_sup = n  # support of the root closure == all transactions
-    (g_hist, lam, t, stats, out_occ, out_meta, out_ptr, g_sig, _trace,
+    (g_hist, lam, t, stats, out_occ, out_meta, out_ptr, g_sig, trace,
      g_hist2d) = raw_out
     g_hist = g_hist.copy()
     if root_sup >= start_sup:
@@ -504,7 +811,9 @@ def postprocess_phase(
     stats_dict = {name: stats[:, i] for i, name in enumerate(STAT_NAMES)}
     if np.any(stats_dict["overflow"]):
         raise RuntimeError("stack overflow in engine: increase stack_cap/push_cap")
-    if int(t) >= cfg.max_steps:
+    # a cooperative (soft-deadline) stop legitimately leaves the frontier
+    # undrained — only an *uninterrupted* pass hitting max_steps is an error
+    if not partial and int(t) >= cfg.max_steps:
         raise RuntimeError("engine hit max_steps before termination")
 
     sig_sup = sig_pos = sig_occ = sig_core = None
@@ -543,6 +852,25 @@ def postprocess_phase(
         if root_sup >= start_sup:
             hist2d[root_sup if root_sup <= n else n, n_pos] += 1
 
+    trace_dec = None
+    trace_dropped = 0
+    if cfg.trace_period:
+        trace_dec = decode_trace(
+            trace, supersteps=int(t), period=cfg.trace_period,
+            round_names=schedule.names if schedule is not None else None,
+            round_tiers=schedule.tiers if schedule is not None else None,
+        )
+        trace_dropped = trace_dec.dropped
+        if trace_dropped:
+            warnings.warn(
+                f"superstep trace ring wrapped: {trace_dropped} oldest "
+                f"sampled records overwritten (trace_cap={cfg.trace_cap}, "
+                f"trace_period={cfg.trace_period}, {int(t)} supersteps); "
+                "the decoded timeline covers only the most recent window — "
+                "raise trace_cap or trace_period",
+                RuntimeWarning,
+                stacklevel=3,
+            )
     return MineOutput(
         hist=g_hist,
         lam_final=int(lam),
@@ -551,11 +879,14 @@ def postprocess_phase(
         sig_count=n_sig,
         sig_sup=sig_sup,
         sig_pos_sup=sig_pos,
+        trace=trace_dec,
         hist2d=hist2d,
         sig_occ=sig_occ,
         sig_core=sig_core,
         emit_dropped=emit_dropped,
+        trace_dropped=trace_dropped,
         db_bits=packed.db_bits,
+        complete=not partial,
     )
 
 
@@ -572,6 +903,10 @@ def mine(
     packed: PackedProblem | None = None,
     statistic: str | None = "fisher",
     device=None,
+    ckpt_dir: str | None = None,
+    resume_from: str | None = None,
+    should_stop=None,
+    ckpt_keep: int = 3,
 ) -> MineOutput:
     """Run one engine pass with `n_miners` virtual miners on one device.
 
@@ -579,12 +914,23 @@ def mine(
     `packed` is given), runs the BSP program, and postprocesses.  It runs
     where `packed` lives, else on `device` (default: the card; without one
     it raises — pass device="cpu" to run on the CPU).
+
+    With `cfg.ckpt_period > 0` the pass runs segmented (DESIGN.md §11):
+    `ckpt_dir` checkpoints the frontier every segment, `resume_from`
+    restores the newest valid step (elastically resharded onto
+    `n_miners`), and `should_stop()` polled at segment boundaries stops the
+    pass cooperatively (MineOutput.complete=False).
     """
     if mode not in VALID_MODES:
         raise ValueError(
             f"unknown engine mode {mode!r}; valid modes: {', '.join(VALID_MODES)}"
         )
     _check_ported(cfg)
+    if (ckpt_dir or resume_from or should_stop is not None) and cfg.ckpt_period <= 0:
+        raise ValueError(
+            "ckpt_dir/resume_from/should_stop need the segmented program: "
+            "set EngineConfig.ckpt_period > 0"
+        )
     if n_miners < 1:
         raise ValueError(f"n_miners must be >= 1, got {n_miners}")
     if packed is None:
@@ -592,19 +938,48 @@ def mine(
     elif device is not None and resolve_device(device) != packed.device:
         raise ValueError(f"packed lives on {packed.device}, not on {device}")
     schedule = build_schedule(n_miners, cfg.n_random_perms, cfg.seed)
-    stack_cap = resolve_stack_cap(cfg, packed.m_pad, packed.w_pad, n_miners)
-    args, ctx = make_phase_args(
-        packed, n_proc=n_miners, cfg=cfg, stack_cap=stack_cap, mode=mode,
-        alpha=alpha, min_sup=min_sup, delta=delta, statistic=statistic,
+    cfg = replace(cfg, stack_cap=resolve_stack_cap(cfg, packed.m_pad, packed.w_pad,
+                                                   n_miners))
+    args, ctx = make_program_args(
+        packed, n_proc=n_miners, cfg=cfg, mode=mode, alpha=alpha,
+        min_sup=min_sup, delta=delta, statistic=statistic,
     )
     program = build_mine_step(
         n=packed.n_pad, n_pos=packed.npos_pad, m=packed.m_pad, cfg=cfg,
-        stack_cap=stack_cap, schedule=schedule, mode=mode,
+        stack_cap=cfg.stack_cap, schedule=schedule, mode=mode,
         device=packed.device, statistic=statistic,
     )
-    raw = program(*args)
+    partial = False
+    if cfg.ckpt_period > 0:
+        from repro_torch.ckpt import mining as ckpt_mining
+
+        provenance = ckpt_mining.make_provenance(
+            packed, mode=mode, statistic=statistic, alpha=alpha,
+            start_sup=ctx["start_sup"], delta=delta,
+        )
+        carry = ctx["carry0"]
+        if resume_from:
+            restored = ckpt_mining.restore_frontier(
+                resume_from, provenance=provenance, n_proc=n_miners, cfg=cfg,
+                mode=mode,
+            )
+            if restored is not None:
+                carry = restored
+        on_segment = None
+        if ckpt_dir:
+            def on_segment(c):
+                ckpt_mining.save_frontier(
+                    c.to_fields(), ckpt_dir, provenance=provenance, keep=ckpt_keep
+                )
+        carry, partial = run_segments(
+            program, carry, cfg=cfg, static=ctx["static"],
+            should_stop=should_stop, on_segment=on_segment,
+        )
+        raw = segments_raw_output(carry)
+    else:
+        raw = program(*args)
     return postprocess_phase(
         raw, packed=packed, n_proc=n_miners, cfg=cfg, mode=mode,
         thr=ctx["thr"], start_sup=ctx["start_sup"], delta=delta,
-        statistic=statistic,
+        statistic=statistic, partial=partial, schedule=schedule,
     )

@@ -22,14 +22,19 @@ picks the support count: the CUDA kernel (cuda), the plain PyTorch version
 (ref), or auto (cuda on the card, ref on the CPU).  --no-steal reproduces
 the paper's naive baseline.  --top-k prints the most significant mined
 itemsets and --patterns-out exports the full ResultSet as TSV/JSON.
---verbose streams JSON-lines run records to stderr, --trace-out saves the
-host span timeline as Chrome-trace JSON and --metrics-out the session's
-Prometheus metrics.
+--verbose streams JSON-lines run records to stderr; --trace-period N
+samples the device superstep trace every N supersteps and adds its
+load-balance summary to the blob; --trace-out saves the host span timeline
+as Chrome-trace JSON and --metrics-out the session's Prometheus metrics.
 
-The device superstep trace (--trace-period/--trace-cap), checkpoints
-(--ckpt-dir/--ckpt-period/--resume) and multi-host shapes
-(--hosts/--devices-per-host) are not ported yet; those flags exit with an
-error naming their ROADMAP.md item.
+Fault tolerance (DESIGN.md §11): --ckpt-period N runs every phase in
+segments of N supersteps, --ckpt-dir writes a frontier checkpoint at each
+segment boundary, and --resume restores the newest valid one (written by
+this launcher or the JAX one; elastic: the frontier is re-dealt onto
+--devices miners).
+
+Multi-host shapes (--hosts/--devices-per-host) are not ported yet; those
+flags exit with an error naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -42,10 +47,6 @@ import time
 
 #: flags of features the port does not have yet -> their ROADMAP.md item
 _UNPORTED = (
-    (("trace_period", "trace_cap"), "--trace-period/--trace-cap",
-     "queue 1, item 7: observability (the superstep trace ring)"),
-    (("ckpt_dir", "ckpt_period", "resume"), "--ckpt-dir/--ckpt-period/--resume",
-     "queue 1, item 8: fault tolerance"),
     (("hosts", "devices_per_host"), "--hosts/--devices-per-host",
      "queue 1, item 10: multi-process topology"),
 )
@@ -97,20 +98,35 @@ def main(argv=None):
     ap.add_argument("--json-out", default="")
     ap.add_argument("--verbose", action="store_true",
                     help="stream structured JSON-lines run records to stderr")
-    ap.add_argument("--trace-period", type=int, default=0, help="not ported yet")
-    ap.add_argument("--trace-cap", type=int, default=0, help="not ported yet")
+    ap.add_argument("--trace-period", type=int, default=0,
+                    help="sample the device superstep trace every N "
+                         "supersteps (0 = off)")
+    ap.add_argument("--trace-cap", type=int, default=0,
+                    help="trace ring slots per miner (0 = default when "
+                         "tracing)")
     ap.add_argument("--trace-out", default="",
                     help="write the host span timeline as Chrome-trace JSON")
     ap.add_argument("--metrics-out", default="",
                     help="write a Prometheus text-format metrics snapshot")
-    ap.add_argument("--ckpt-dir", default="", help="not ported yet")
-    ap.add_argument("--ckpt-period", type=int, default=0, help="not ported yet")
-    ap.add_argument("--resume", default="", help="not ported yet")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="write frontier checkpoints under this directory "
+                         "(requires --ckpt-period)")
+    ap.add_argument("--ckpt-period", type=int, default=0,
+                    help="supersteps between frontier checkpoints "
+                         "(0 = off; enables the segmented engine)")
+    ap.add_argument("--resume", default="",
+                    help="resume from the newest valid checkpoint under "
+                         "this directory (elastic: the saved frontier is "
+                         "re-dealt onto the current miner count)")
     args = ap.parse_args(argv)
 
     for dests, flags, item in _UNPORTED:
         if any(getattr(args, d) for d in dests):
             ap.error(f"{flags}: not ported yet (ROADMAP.md {item})")
+    if (args.ckpt_dir or args.resume) and args.ckpt_period < 1:
+        ap.error("--ckpt-dir/--resume need --ckpt-period N (N >= 1): "
+                 "checkpoints are cut at segment boundaries of the "
+                 "segmented engine")
     if args.query == "closed-frequent" and args.min_sup < 1:
         ap.error("--query closed-frequent needs --min-sup N (N >= 1): the "
                  "objective is every closed itemset with support >= N")
@@ -156,6 +172,9 @@ def main(argv=None):
             kernel_impl=args.kernel,
             sync_period=args.sync_period,
             out_cap=args.out_cap,
+            trace_period=args.trace_period,
+            trace_cap=args.trace_cap,
+            ckpt_period=args.ckpt_period,
             # stack_cap=None: sized by RuntimeConfig.resolve for the
             # dataset's bucket and the miner count
             stack_cap=args.stack_cap or None,
@@ -170,8 +189,14 @@ def main(argv=None):
             alpha=args.alpha, statistic=args.stat, pipeline=args.pipeline
         )
     t0 = time.time()
-    report = session.run(ds, query)
+    report = session.run(ds, query,
+                         ckpt_dir=args.ckpt_dir or None,
+                         resume_from=args.resume or None)
     dt = time.time() - t0
+    if any(p.resumed for p in report.phases):
+        resumed = [p.mode for p in report.phases if p.resumed]
+        print(f"[ckpt] resumed phase(s) {resumed} from {args.resume}",
+              file=sys.stderr)
     if log:
         for p in report.phases:
             log.event(
@@ -206,8 +231,22 @@ def main(argv=None):
         "per_device_popped": work_phase.stats["popped"].tolist(),
         "steals": int(sum(work_phase.stats["steals_got"])),
     }
+    if args.ckpt_period:
+        out["ckpt"] = {
+            "partial": report.partial,
+            "resumed": [p.mode for p in report.phases if p.resumed],
+            "writes": sum(p.ckpt_writes for p in report.phases),
+            "bytes": sum(p.ckpt_bytes for p in report.phases),
+            "path": report.ckpt_path,
+        }
     if report.query == "significant":
         out["planted_recall"] = score_planted(rs, ds.planted)["recall"]
+    if args.trace_period:
+        # the work phase's decoded device timeline, as load-balance metrics
+        wp = (report.phases[1] if report.query == "significant"
+              and len(report.phases) > 1 else report.phases[-1])
+        if wp.trace is not None:
+            out["superstep_trace"] = wp.trace.summary()
     print(json.dumps(out, indent=1, default=str))
     if log:
         ci = session.cache_info()

@@ -1,5 +1,9 @@
-"""repro_torch.obs — host observability (counterpart of `repro.obs`).
+"""repro_torch.obs — observability (counterpart of `repro.obs`).
 
+  trace.py    device superstep trace — a [P, trace_cap, N_FIELDS] int32
+              ring in the BSP carry, sampled every trace_period
+              supersteps, decoded host-side into per-miner timelines and
+              load-balance metrics.
   span.py     host span tracer — nested context-manager spans around
               pack/compile/dispatch/postprocess/reconstruct, exported as
               Chrome-trace (Perfetto) JSON, with an optional
@@ -7,19 +11,31 @@
   metrics.py  metrics registry — counters/gauges/histograms with
               Prometheus text exposition, fed by MinerSession.
   log.py      structured JSON-lines run records for the launcher.
-
-The device superstep trace ring (`repro.obs.trace`) and the artifact
-validators (`repro.obs.validate`) are not ported yet (ROADMAP.md queue 1,
-item 7).
+  validate.py artifact schema validators
+              (`python -m repro_torch.obs.validate --chrome t.json --prom m.prom`).
 """
 
 from .log import JsonlLogger
 from .metrics import DEFAULT_LATENCY_BUCKETS, MetricsRegistry
 from .span import SpanTracer
+from .trace import (
+    DEFAULT_TRACE_CAP,
+    N_FIELDS,
+    SuperstepTrace,
+    TraceField,
+    decode_trace,
+    jain_fairness,
+)
 
 __all__ = [
     "DEFAULT_LATENCY_BUCKETS",
+    "DEFAULT_TRACE_CAP",
     "JsonlLogger",
     "MetricsRegistry",
+    "N_FIELDS",
     "SpanTracer",
+    "SuperstepTrace",
+    "TraceField",
+    "decode_trace",
+    "jain_fairness",
 ]

@@ -460,15 +460,26 @@ def test_validation_errors_match_jax(name, shared_sessions):
     "trace_period", "ckpt_period", "topology", "kernel_blocks", "stream",
     "ckpt_dir", "resume_from", "device_mismatch"])
 def test_unported_options_raise(case):
+    """Topologies (item 10) and streaming (item 9) still raise, naming their
+    item; the trace ring and the segmented program are ported (item 7 and
+    8: the session runs them), and ckpt_dir/resume_from without
+    ckpt_period are refused as the JAX session refuses them."""
     db, labels = small_problem(0)
     _, td = datasets(db, labels)
+    q = tapi.SignificantPatternQuery()
     runtime = dict(trace_period=dict(trace_period=1),
                    ckpt_period=dict(ckpt_period=4),
                    topology=dict(topology=object()),
                    kernel_blocks=dict(kernel_blocks=(8, 512, 32))).get(case)
+    if case in ("trace_period", "ckpt_period"):
+        rep = tapi.MinerSession(device="cpu", runtime=tapi.RuntimeConfig(**runtime)).run(
+            td, q)
+        assert all((p.trace is not None) == (case == "trace_period") for p in rep.phases)
+        assert rep.results.complete and not rep.partial
+        return
     if runtime is not None:
         exc, match = ((ValueError, "kernel_blocks") if case == "kernel_blocks"
-                      else (NotImplementedError, "ROADMAP.md queue 1, item"))
+                      else (NotImplementedError, "ROADMAP.md queue 1, item 10"))
         with pytest.raises(exc, match=match):
             tapi.MinerSession(device="cpu", runtime=tapi.RuntimeConfig(**runtime))
         if case == "kernel_blocks":
@@ -476,14 +487,14 @@ def test_unported_options_raise(case):
                 tapi.RuntimeConfig(**runtime).resolve(td.bucket, 1, "cpu")
         return
     session = tapi.MinerSession(device="cpu")
-    q = tapi.SignificantPatternQuery()
     if case == "device_mismatch":
         td.packed = dataclasses.replace(td.packed, device=torch.device("cuda", 0))
         with pytest.raises(ValueError, match="lies on cuda:0"):
             session.run(td, q)
         return
-    item = {"stream": "item 9", "ckpt_dir": "item 8", "resume_from": "item 8"}[case]
-    with pytest.raises(NotImplementedError, match=item):
+    exc, match = ((NotImplementedError, "item 9") if case == "stream"
+                  else (ValueError, "need the segmented program"))
+    with pytest.raises(exc, match=match):
         session.run(td, q, **{case: object() if case == "stream" else "dir"})
 
 

@@ -4,7 +4,9 @@ package's (`python -m repro.launch.mine`).
 The JAX launcher runs in a subprocess, because `--devices N` forces the
 simulated device count before JAX starts; the port's runs in-process on
 the CPU (`--device cpu`), with `--devices N` as N virtual miners.  Their
-JSON blobs must be equal, wall time aside.
+JSON blobs must be equal, wall time aside — with the superstep trace and
+checkpoints on too; and the port's launcher resumes the JAX launcher's
+checkpoints.
 """
 
 import json
@@ -41,21 +43,28 @@ def jax_launches(tmp_path_factory):
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
     out = tmp_path_factory.mktemp("jax")
     runs = {}
-    for case in CASES:
+    for case in CASES + [TRACED]:
         path = out / f"{case[0]}_{case[1]}.json"
+        extra = (["--ckpt-dir", str(out / "ckpt")] + TRACED_FLAGS
+                 if case == TRACED else [])
         proc = subprocess.Popen(
-            [sys.executable, "-m", "repro.launch.mine", *_args(*case),
+            [sys.executable, "-m", "repro.launch.mine", *_args(*case), *extra,
              "--json-out", str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
         runs[case] = (proc, path)
+    runs["ckpt_dir"] = out / "ckpt"
     yield runs
-    for proc, _ in runs.values():
+    for case in CASES + [TRACED]:
+        proc = runs[case][0]
         if proc.poll() is None:
             proc.kill()
         proc.communicate()
 
 
 CASES = [(p, d) for p in ("three_phase", "fused23") for d in (1, 4)]
+#: the case run with the superstep trace and segmented checkpoints on
+TRACED = ("fused23", 3)
+TRACED_FLAGS = ["--trace-period", "1", "--ckpt-period", "4"]
 
 
 def _args(pipeline: str, devices: int) -> list[str]:
@@ -88,19 +97,47 @@ def test_blob_matches_jax_launcher(case, jax_launches, tmp_path, capsys):
     assert printed.split("}")[-1] == stdout.split("}")[-1]
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--trace-period", "1"], "item 7"),
-    (["--trace-cap", "64"], "item 7"),
-    (["--ckpt-dir", "ck", "--ckpt-period", "2"], "item 8"),
-    (["--resume", "ck"], "item 8"),
-    (["--hosts", "2", "--devices-per-host", "2"], "item 10"),
+def test_traced_checkpointed_blob_matches_jax_and_resumes_its_ckpt(
+        jax_launches, tmp_path, capsys):
+    """--trace-period and --ckpt-dir/--ckpt-period: the JAX launcher's blob,
+    superstep_trace and ckpt keys included; then --resume of the JAX
+    launcher's checkpoints restores every phase to the same answer."""
+    port_out, ck = tmp_path / "port.json", tmp_path / "ckpt"
+    tmine.main(_args(*TRACED) + ["--device", "cpu", "--ckpt-dir", str(ck),
+                                 *TRACED_FLAGS, "--json-out", str(port_out)])
+    proc, jax_out = jax_launches[TRACED]
+    _, stderr = proc.communicate(timeout=600)
+    assert proc.returncode == 0, stderr[-4000:]
+    want, got = _blob(jax_out), _blob(port_out)
+    assert got == want   # a complete query reports no checkpoint path
+    assert got["superstep_trace"]["sampled_steps"] == got["supersteps"][1]
+    assert got["ckpt"]["writes"] > 0 and got["ckpt"]["resumed"] == []
+    resumed_out = tmp_path / "resumed.json"
+    tmine.main(_args(*TRACED) + ["--device", "cpu", "--resume",
+                                 str(jax_launches["ckpt_dir"]), *TRACED_FLAGS,
+                                 "--json-out", str(resumed_out)])
+    again = _blob(resumed_out)
+    assert again["ckpt"]["resumed"] == ["lamp1", "count2d"]
+    assert "[ckpt] resumed phase(s)" in capsys.readouterr().err
+    for k in ("lambda", "min_sup", "closed_sets", "significant", "patterns",
+              "supersteps", "superstep_trace"):
+        assert again[k] == got[k], k
+
+
+@pytest.mark.parametrize("flags, match", [
+    (["--hosts", "2", "--devices-per-host", "2"], "ROADMAP.md queue 1, item 10"),
+    (["--hosts", "2"], "ROADMAP.md queue 1, item 10"),
+    (["--devices-per-host", "2"], "ROADMAP.md queue 1, item 10"),
+    (["--ckpt-dir", "ck"], "need --ckpt-period"),
+    (["--resume", "ck"], "need --ckpt-period"),
 ])
-def test_unported_flags_exit_naming_their_item(flags, item, capsys):
+def test_unported_flags_exit_naming_their_item(flags, match, capsys):
+    """Only the topology flags are left unported; the checkpoint flags
+    exit as the JAX launcher's do without --ckpt-period."""
     with pytest.raises(SystemExit) as exc:
         tmine.main(PROBLEM + ["--device", "cpu"] + flags)
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP.md queue 1, {item}" in err
+    assert match in capsys.readouterr().err
 
 
 def test_default_device_refuses_without_cuda():

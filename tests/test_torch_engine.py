@@ -7,8 +7,9 @@ compared exactly — histograms, lambda, supersteps, per-miner stats and the
 emitted pattern records.  One stated tolerance: a record is emitted when
 its float32 device P-value clears the gate, and torch's float32 `lgamma`
 differs from JAX's `gammaln` in the last bits, so a record whose float64
-P-value lies within 1e-2 relative of the gate may be emitted by one engine
-and not the other; the tests assert that only such records differ.
+P-value lies within `gate_rtol(N)` (relative; tests/test_torch_api.py) of
+the gate may be emitted by one engine and not the other; the tests assert
+that only such records differ.
 
 P = 1 runs in-process; P = 8 runs the JAX side in a subprocess with eight
 simulated devices (tests/engine_subproc_main.py, unchanged).
@@ -32,13 +33,10 @@ from repro.data.synthetic import SyntheticSpec, generate  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
 from repro_torch.core.lifeline import build_schedule  # noqa: E402
 from repro_torch.stats import fisher_pvalue  # noqa: E402
+from test_torch_api import gate_rtol  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-
-#: float64 P-values this close (relative) to the emission gate may be
-#: decided differently by the two float32 device tests
-GATE_RTOL = 1e-2
 
 KW = dict(expand_batch=4, stack_cap=512, steal_max=16, push_cap=8, out_cap=1024)
 
@@ -71,7 +69,7 @@ def assert_records_match(a, b, *, gate, n, n_pos):
     """Emitted records equal in order, except records near the gate."""
     def far(out):
         p = fisher_pvalue(out.sig_sup, out.sig_pos_sup, n, n_pos)
-        return np.abs(p - gate) > GATE_RTOL * gate
+        return np.abs(p - gate) > gate_rtol(n) * gate
 
     ka, kb = far(a), far(b)
     for f in ("sig_occ", "sig_core", "sig_sup", "sig_pos_sup"):
@@ -148,13 +146,12 @@ def test_pack_and_deal_match_jax():
 
 
 def test_unported_options_raise():
+    """Only multi-host topologies are left unported (the trace ring and the
+    segmented program are tests/test_torch_{trace,fault_tolerance}.py's)."""
     db, labels = small_problem(0)
-    for kw, match in ((dict(trace_period=1, trace_cap=8), "queue 1, item 7"),
-                      (dict(ckpt_period=4), "queue 1, item 8"),
-                      (dict(topology=object()), "queue 1, item 10")):
-        with pytest.raises(NotImplementedError, match=match):
-            teng.mine(db, labels, mode="count", min_sup=3,
-                      cfg=teng.EngineConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+        teng.mine(db, labels, mode="count", min_sup=3,
+                  cfg=teng.EngineConfig(topology=object()), device="cpu")
 
 
 # ------------------------------------------------------------------ P = 8

@@ -3,12 +3,15 @@
 The `fused23` query on hapmap_dom_20 at 1,191 items through
 `repro_torch.api` against the JAX package's `MinerSession.run`; the JAX
 package's values for every query `chip_smoke.py` runs on the card
-(`QUERY_EXPECT`, `FULL_WIDTH`), derived here — the one place that runs the
-1,191-item JAX queries; how far the float32 emission gates of those
+(`QUERY_EXPECT`, `FULL_WIDTH`, and phase 6's `TRACE_EXPECT` and
+`FRONTIER_EXPECT`, those on eight simulated JAX devices in subprocesses),
+derived here — the one place that runs the 1,191-item JAX queries and the
+full-width frontiers; how far the float32 emission gates of those
 queries sit from the nearest counted cell; and the port's import hygiene
 and its refusal to fall back to the CPU.
 """
 
+import hashlib
 import json
 import os
 import shutil
@@ -32,12 +35,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (  # noqa: E402
+    FRONTIER_EXPECT,
     FULL_WIDTH,
     QUERY_EXPECT,
     TOPK,
+    TRACE_EXPECT,
     _library,
     query_values,
 )
+from test_torch_jax_worker import collect, spawn_jax  # noqa: E402
 
 #: float32 unit roundoff
 EPS32 = float(np.finfo(np.float32).eps)
@@ -147,6 +153,39 @@ def test_chip_smoke_full_width_constants_are_jax_values(name, min_sup, closed, s
     assert int(rep.phases[0].output.hist.sum()) == closed
 
 
+def test_chip_smoke_trace_constants_are_jax_values():
+    """Phase 6a's TRACE_EXPECT: query (a) on eight JAX devices, traced every
+    superstep — the digest of its decoded traces, and each phase's
+    trace_dropped with a ring of wrap_cap slots."""
+    data = {"paper": "hapmap_dom_20", "scale_items": 0.1}
+    (pipeline, statistic), expect = QUERY_EXPECT["a"]
+    query = dict(pipeline=pipeline, statistic=statistic)
+    procs = [spawn_jax(dict(dataset=data, query=query,
+                            runtime=dict(trace_period=1, trace_cap=cap)), 8)
+             for cap in (256, TRACE_EXPECT["wrap_cap"])]
+    traced, wrapped = (collect(p) for p in procs)
+    assert traced["n_devices"] == 8
+    assert [p["supersteps"] for p in traced["phases"]] == [125, 104]
+    assert [p["trace_dropped"] for p in traced["phases"]] == [0, 0]
+    assert traced["trace_digest"] == TRACE_EXPECT["digest"]
+    assert [p["trace_dropped"] for p in wrapped["phases"]] == TRACE_EXPECT["wrap_dropped"]
+    for out in (traced, wrapped):
+        assert (hashlib.sha256(out["results_json"].encode()).hexdigest()[:16]
+                == expect["results_sha256"])
+
+
+def test_chip_smoke_frontier_constants_are_jax_values(tmp_path):
+    """Phase 6d's FRONTIER_EXPECT: the full-width hapmap_dom_20 Fisher query
+    on eight JAX devices in segments of k supersteps, stopped after two —
+    the frontier digests of its lamp1 phase at steps k and 2k."""
+    k = FRONTIER_EXPECT["k"]
+    out = collect(spawn_jax(dict(
+        dataset={"paper": FRONTIER_EXPECT["problem"]}, runtime=dict(ckpt_period=k),
+        query=dict(statistic="fisher"), ckpt_dir=str(tmp_path), stop_after=1), 8))
+    assert out["partial"] and out["ckpt_path"].endswith(f"00_lamp1/step_{2 * k}")
+    assert out["frontier_digest"] == FRONTIER_EXPECT["steps"]
+
+
 @pytest.mark.parametrize("statistic, gates", [
     ("fisher", ("a", "b", "d")), ("chi2", ("c",))])
 def test_float32_gate_distances_at_1191_items(statistic, gates, jax_1191):
@@ -184,8 +223,9 @@ def test_port_imports_no_jax_and_no_repro():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
-        "      or m.startswith(('jax.', 'repro.')))))\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "      if m in ('jax', 'repro', 'ml_dtypes')\n"
+        "      or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))))\n"
     )
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
