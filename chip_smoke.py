@@ -22,9 +22,9 @@ run on any error (each prints its wall time):
    (a) `fused23` with Fisher's test, cold then warm (the warm run builds no
        program, and its kernel launches are the main path's count),
    (b) `three_phase`, Fisher, (c) `fused23` with chi2 — each of (a)-(c)
-       with the kernel, with the plain version on the card and on the CPU,
-       all identical — and (d) the top-10 query with the kernel; every
-       query's values equal the JAX package's;
+       with the kernel and with the plain version on the card, and (a) on
+       the CPU too, all identical — and (d) the top-10 query with the
+       kernel; every query's values equal the JAX package's;
 5. the paper's full widths: mode `count` on hapmap_dom_20 (11,914 items)
    and alz_rec_30 (250,120 items), kernel against plain version, then once
    more under the profiler; and the closed-frequent query through the
@@ -43,8 +43,20 @@ run on any error (each prints its wall time):
    artifacts validated; (g) the warm wall of (a) classic, segmented,
    segmented with checkpoints and traced, three rounds, with checkpoint
    write times and bytes and the peak device memory of each query;
+7. serving (`repro_torch.serve`) at phase 4's bucket, P = 8 per session:
+   (a) query (a) streamed on the warm session, its head (top 10) delivered
+   once, equal to the final top 10, the report equal to (a)'s; (b) a
+   `MiningService` of 1, 2 and 4 sessions on the card, one CUDA stream
+   each, warmed before traffic, draining 16 reseeded requests closed-loop
+   at a concurrency of the fleet size: every served report equals a direct
+   warm run of the same request, the kernel launches summed over the fleet
+   equal the direct runs', no request compiles; qps, latency percentiles
+   and the device's idle share; the fleet of 4 once more with the
+   interpreter switching threads every 0.1 ms; (c) a request retried to success after an
+   injected failure, and one whose deadline stops it mid-mine ("partial"),
+   whose checkpoint resumes to (a)'s answer; (d) the `mine_serve` CLI;
 and, after them, the kernel against the plain version at every shape
-phases 4-6 launched that phase 3 did not check (3b).
+phases 4-7 launched that phase 3 did not check (3b).
 
 The second-to-last line is a JSON object with the kernel's numbers; the
 last is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -119,6 +131,16 @@ FRONTIER_EXPECT = dict(problem="hapmap_dom_20", k=128, steps={
 #: a SuperstepTrace's arrays, in the order `trace_digest` hashes them
 TRACE_ARRAYS = ("steps", "lam", "n_hungry", "fired", "depth", "popped",
                 "pushed", "closed", "emitted", "donated", "received")
+#: phase 7b: the requests each fleet drains — datasets reseeded 0..15 in
+#: (a)'s bucket (seed 0 is (a)'s), alpha cycling, `fused23` with Fisher's
+#: test — and the fleets, (size, the interpreter's thread switch interval
+#: in s or None for its default of 5 ms), each drained at a concurrency of
+#: its size.  The last drains the fleet of 4 again with threads switched
+#: every 0.1 ms, to show how much of what a bigger fleet loses is its
+#: workers waiting for the interpreter lock; it is not profiled.
+SERVE_REQUESTS = 16
+SERVE_ALPHAS = (0.05, 0.01)
+SERVE_FLEETS = ((1, None), (2, None), (4, None), (4, 1e-4))
 
 def make_query(tag: str):
     """Phase 4's query object for `tag` (a key of QUERY_EXPECT)."""
@@ -437,8 +459,7 @@ def _counted(fn):
     the kernel's counters set to 0 just before it."""
     from repro_torch.kernels.support_count import kernel
 
-    kernel.launches = 0
-    kernel.launch_shapes.clear()
+    kernel.reset_counts()
     out, wall = _wall(fn)
     return out, wall, kernel.launches, dict(kernel.launch_shapes)
 
@@ -705,6 +726,290 @@ def phase6(ds_a, rep_a, launched: set) -> dict:
     return launches
 
 
+def _busy_union_s(prof) -> float | None:
+    """Seconds of a profile in which at least one kernel ran on the card:
+    the union of the CUDA activities' intervals, since kernels of two
+    workers' streams may overlap (host annotations left out); None when
+    the profile holds no device activity."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    if not spans:
+        return None
+    busy, reach = 0.0, -math.inf
+    for lo, hi in spans:
+        if hi > reach:
+            busy += hi - max(lo, reach)
+            reach = hi
+    return busy / 1e6
+
+
+def phase7(ds_a, session_a, rep_a, launched: set) -> dict:
+    """Phase 7: serving on the card (7a-7d).
+
+    `ds_a` is phase 4's 1,191-item Dataset on the card, `session_a` the warm
+    P = 8 session of the main path and `rep_a` its report of query (a).
+    Every run adds its kernel launch shapes to `launched` (3b checks them).
+    Checkpoints go under build/chip_smoke/, removed at the end.  Returns
+    {run: kernel launches}.
+    """
+    import asyncio
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import (
+        Dataset,
+        MinerSession,
+        RuntimeConfig,
+        SignificantPatternQuery,
+    )
+    from repro_torch.data.synthetic import paper_problem_packed
+    from repro_torch.kernels.support_count import kernel
+    from repro_torch.results import ResultStream
+    from repro_torch.serve import MiningService, ServeConfig, WarmupSpec, percentile
+    from repro_torch.testing import FaultPlan, injected
+
+    tmp = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    q_a = make_query("a")
+    expect_a = QUERY_EXPECT["a"][1]
+    sha_a = expect_a["results_sha256"]
+    warm = [WarmupSpec(ds_a.bucket, statistic="fisher", pipeline="fused23")]
+    launches: dict[str, int] = {}
+
+    def counted(tag, fn):
+        out, wall, n, shapes = _counted(fn)
+        launched.update(shapes)
+        launches[tag] = n
+        if n <= 0:
+            raise AssertionError(f"(7) {tag}: the kernel was never launched")
+        return out, wall, n, shapes
+
+    try:
+        # (7a) query (a) streamed on the warm session of the main path
+        print(f"[7a] query (a) on the warm session, ResultStream(head_k={TOPK})",
+              flush=True)
+        heads = []
+        t_run = [0.0]
+
+        def streamed():
+            t_run[0] = time.perf_counter()
+            return session_a.run(ds_a, q_a, stream=ResultStream(
+                head_k=TOPK,
+                on_head=lambda p: heads.append((time.perf_counter() - t_run[0], p))))
+
+        rep, wall, n, shapes = counted("7a streamed", streamed)
+        if len(heads) != 1:
+            raise AssertionError(f"(7a) the head was delivered {len(heads)} times")
+        t_head, head = heads[0]
+        if head != rep.results.patterns[:TOPK]:
+            raise AssertionError("(7a) the streamed head != the final top 10")
+        bad = expect_diffs(rep, expect_a) + report_diffs(rep_a, rep)
+        if bad:
+            raise AssertionError(f"(7a) streamed (a) differs: {bad}")
+        print(f"  (7a) head of {len(head)} at {t_head:.4f} s of a {wall:.4f} s "
+              f"query ({100 * t_head / wall:.1f}%); streamed == unstreamed == "
+              f"the JAX package's; kernel launches {n} by (B, M, W): {shapes}",
+              flush=True)
+
+        # (7b) fleets of 1, 2 and 4 sessions draining reseeded requests
+        work = []
+        for seed in range(SERVE_REQUESTS):
+            bits, lab, _, sp = paper_problem_packed("hapmap_dom_20", scale_items=0.1,
+                                                    seed=seed)
+            ds = Dataset.from_packed_words(bits, lab, n_transactions=sp.n_transactions,
+                                           name=sp.name)
+            if ds.bucket != ds_a.bucket:
+                raise AssertionError(f"(7b) seed {seed}: bucket {ds.bucket}")
+            work.append((ds, SignificantPatternQuery(
+                alpha=SERVE_ALPHAS[seed % len(SERVE_ALPHAS)], pipeline="fused23",
+                statistic="fisher")))
+        print(f"[7b] {SERVE_REQUESTS} requests (seeds 0-{SERVE_REQUESTS - 1}, alpha "
+              f"{SERVE_ALPHAS}, fused23/Fisher), direct on the warm session, then "
+              f"served by fleets of {[n for n, _ in SERVE_FLEETS]} sessions of P = 8",
+              flush=True)
+        direct_sha, direct_walls, direct_total = [], [], 0
+        for i, (ds, q) in enumerate(work):
+            rep, wall, n, shapes = _counted(lambda: session_a.run(ds, q))
+            launched.update(shapes)
+            direct_total += n
+            direct_sha.append(results_sha256(rep.results))
+            direct_walls.append(wall)
+            if i == 0 and expect_diffs(rep, expect_a):
+                raise AssertionError(f"(7b) seed 0 != (a): {expect_diffs(rep, expect_a)}")
+        print(f"  direct: {sum(direct_walls):.3f} s in all "
+              f"({SERVE_REQUESTS / sum(direct_walls):.3f} qps serial), walls "
+              f"{min(direct_walls):.3f}-{max(direct_walls):.3f} s, kernel "
+              f"launches {direct_total}", flush=True)
+
+        async def drain(service, items):
+            """Closed loop, a client per worker: [ServeResult] in item order."""
+            results = [None] * len(items)
+            todo = iter(range(len(items)))
+
+            async def client():
+                for i in todo:
+                    results[i] = await service.mine(*items[i])
+
+            await asyncio.gather(*[client() for _ in range(service.size)])
+            return results
+
+        async def serve(size, profiled):
+            svc = MiningService(size=size, n_miners=8, warmups=warm)
+            compiled = await svc.start()
+            streams = {w.stream for w in svc.fleet.workers}
+            if None in streams or len(streams) != size:
+                raise AssertionError(f"(7b) fleet {size}: streams {streams}")
+            # the counters are set to 0 just before the drain, read just after
+            kernel.reset_counts()
+            t0 = time.perf_counter()
+            res = await drain(svc, work)
+            wall_d = time.perf_counter() - t0   # each request synchronised
+            n_d, shapes_d = kernel.launches, dict(kernel.launch_shapes)
+            if not profiled:
+                await svc.stop()
+                return compiled, res, wall_d, n_d, shapes_d, None, None
+            # the idle share: a profiled pass of one request per worker, the
+            # device's activity only (the host's ops of four threads would
+            # cost a minute of post-processing); with the host's too should
+            # that show no device time
+            busy_p = None
+            for acts in ([ProfilerActivity.CUDA],
+                         [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                torch.cuda.synchronize()
+                with profile(activities=acts) as prof:
+                    tp = time.perf_counter()
+                    await drain(svc, work[:size])
+                    torch.cuda.synchronize()
+                    wall_p = time.perf_counter() - tp
+                busy_p = _busy_union_s(prof)
+                if busy_p is not None:
+                    break
+            await svc.stop()
+            return compiled, res, wall_d, n_d, shapes_d, busy_p, wall_p
+
+        for size, switch in SERVE_FLEETS:
+            name = f"fleet of {size}" + (
+                "" if switch is None else f", switch interval {switch * 1e3:g} ms")
+            default_switch = sys.getswitchinterval()
+            t7 = time.perf_counter()
+            try:
+                if switch is not None:
+                    sys.setswitchinterval(switch)
+                compiled, res, wall_d, n_d, shapes_d, busy_p, wall_p = asyncio.run(
+                    serve(size, profiled=switch is None))
+            finally:
+                sys.setswitchinterval(default_switch)
+            t7 = time.perf_counter() - t7
+            launched.update(shapes_d)
+            launches[f"7b {name}"] = n_d
+            bad = [i for i, r in enumerate(res)
+                   if not r.ok or results_sha256(r.report.results) != direct_sha[i]]
+            cold = sum(1 for r in res if r.ok and r.report.cold)
+            if bad or cold or n_d != direct_total:
+                raise AssertionError(
+                    f"(7b) {name}: requests {bad} differ from their direct "
+                    f"runs, warm_violations {cold}, kernel launches {n_d} "
+                    f"(direct {direct_total})")
+            if expect_diffs(res[0].report, expect_a):
+                raise AssertionError(f"(7b) {name}: seed 0 != (a)")
+            lat = [r.total_s for r in res]
+            if switch is not None:
+                busy_txt = "not profiled"
+            elif busy_p is None:
+                busy_txt = "the profiler saw no device time (idle not measured)"
+            else:
+                per_req = busy_p / size
+                busy_txt = (f"device busy {per_req * 1e3:.3f} ms per request "
+                            f"(profiled pass of {size}: union busy "
+                            f"{busy_p * 1e3:.3f} ms of {wall_p:.3f} s), idle "
+                            f"{100 * (1 - per_req * len(res) / wall_d):.2f}% of "
+                            f"the drain")
+            print(f"  (7b) {name} ({t7:.1f} s with its warmup"
+                  f"{'' if switch is not None else ' and profiled pass'}): "
+                  f"warmup built {compiled} programs; "
+                  f"{len(res)} served in {wall_d:.3f} s = "
+                  f"{len(res) / wall_d:.3f} qps; latency p50 "
+                  f"{percentile(lat, 50):.4f} p90 {percentile(lat, 90):.4f} max "
+                  f"{max(lat):.4f} s; service mean "
+                  f"{sum(r.service_s for r in res) / len(res):.4f} s (direct "
+                  f"{sum(direct_walls) / len(direct_walls):.4f}); sessions "
+                  f"{sorted({r.session_id for r in res})}; batch sizes "
+                  f"{sorted({r.batch_size for r in res})}; kernel launches {n_d} "
+                  f"(= direct); warm_violations 0; {busy_txt}", flush=True)
+
+        # (7c) a retry to success, then a deadline that stops a request
+        print("[7c] one request failed once by an injected fault, then one with a "
+              "0.2 s deadline on a fleet with ckpt_period 8", flush=True)
+
+        async def retried():
+            svc = MiningService(size=1, n_miners=8, warmups=warm)
+            await svc.start()
+            with injected(FaultPlan(serve_fail_first_n=1)):
+                res = await svc.mine(ds_a, q_a)
+            await svc.stop()
+            return res
+
+        res = counted("7c retry", lambda: asyncio.run(retried()))[0]
+        if (res.outcome, res.attempts) != ("ok", 2) or \
+                results_sha256(res.report.results) != sha_a:
+            raise AssertionError(f"(7c) retry: {res.outcome} after {res.attempts} "
+                                 f"attempts ({res.reason})")
+        seg = RuntimeConfig(ckpt_period=8)
+
+        async def deadlined():
+            svc = MiningService(size=1, n_miners=8, runtime=seg, warmups=warm,
+                                config=ServeConfig(ckpt_root=str(tmp / "7c")))
+            await svc.start()
+            res = await svc.mine(ds_a, q_a, timeout_s=0.2)
+            await svc.stop()
+            return res
+
+        part, wall_part = counted("7c partial", lambda: asyncio.run(deadlined()))[:2]
+        if part.outcome != "partial" or not part.report.partial or \
+                not (part.ckpt_path or "").startswith(str(tmp / "7c")):
+            raise AssertionError(f"(7c) deadline: {part.outcome} ({part.reason}), "
+                                 f"ckpt {part.ckpt_path}")
+        resume_dir = os.path.dirname(os.path.dirname(part.ckpt_path))
+        rep = counted("7c resumed", lambda: MinerSession(8, runtime=seg).run(
+            ds_a, q_a, resume_from=resume_dir))[0]
+        if results_sha256(rep.results) != sha_a or rep.partial or \
+                not rep.phases[0].resumed:
+            raise AssertionError(f"(7c) the resumed partial: {rep.summary()}")
+        print(f"  (7c) retry: ok on attempt {res.attempts}, (a)'s sha; deadline: "
+              f"partial after {part.total_s:.3f} s, "
+              f"{len(part.report.results)} patterns so far, "
+              f"{sum(p.supersteps for p in part.report.phases)} supersteps, "
+              f"checkpoint {os.path.relpath(part.ckpt_path, tmp)}; its resume "
+              f"gives (a)'s sha", flush=True)
+
+        # (7d) the serving CLI on the card
+        print("[7d] python -m repro_torch.launch.mine_serve --smoke --concurrency 2",
+              flush=True)
+        blob_path = tmp / "serve.json"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.mine_serve", "--smoke",
+             "--concurrency", "2", "--json-out", str(blob_path)],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+        if cli.returncode != 0:
+            raise AssertionError(f"(7d) the CLI failed:\n{cli.stderr[-4000:]}")
+        with open(blob_path) as fh:
+            blob = json.load(fh)
+        if blob["failed"] or blob["warm_violations"] or blob["ok"] != blob["queries"]:
+            raise AssertionError(f"(7d) {blob}")
+        print(f"  (7d) CLI: {blob['ok']}/{blob['queries']} ok, failed 0, "
+              f"warm_violations 0, {blob['achieved_qps']} qps, p50 "
+              f"{blob['p50_s']} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -846,17 +1151,19 @@ def main() -> int:
     if bad:
         raise AssertionError(f"(a) cold != warm in {bad}")
     for tag in ("a", "b", "c"):
-        for who in ("kernel", "plain", "cpu"):
+        # the CPU, at ~30 s a query, repeats (a) only
+        whos = ("plain", "cpu") if tag == "a" else ("plain",)
+        for who in ("kernel",) + whos:
             if (tag, who) != ("a", "kernel"):
                 reports.setdefault(tag, {})[who] = run(tag, who)[0]
-        for who in ("plain", "cpu"):
+        for who in whos:
             bad = report_diffs(reports[tag]["kernel"], reports[tag][who])
             if bad:
                 raise AssertionError(f"({tag}) kernel != {who} in {bad}")
         check_expect(tag, reports[tag]["kernel"])
     rep_d = run("d", "kernel")[0]
     check_expect("d", rep_d)
-    print(f"  (a), (b), (c): kernel == plain == CPU, MineReports and ResultSet "
+    print(f"  (a), (b), (c): kernel == plain (== CPU for (a)), MineReports and ResultSet "
           f"exports; (a)-(d) equal the JAX package's values; main-path kernel "
           f"launches {main_launches} over "
           f"{sum(p.supersteps for p in rep_a.phases)} supersteps", flush=True)
@@ -949,10 +1256,15 @@ def main() -> int:
     p6_launches = phase6(datasets["cuda"], rep_a, launched)
     done("6", t0)
 
-    # ---- 3b. the kernel at every shape phases 4-6 launched, not yet checked
+    # ---- 7. serving
+    t0 = time.perf_counter()
+    p7_launches = phase7(datasets["cuda"], sessions["kernel"][0], rep_a, launched)
+    done("7", t0)
+
+    # ---- 3b. the kernel at every shape phases 4-7 launched, not yet checked
     t0 = time.perf_counter()
     new = sorted(launched - checked)
-    print(f"[3b] kernel vs plain version at the {len(new)} shapes phases 4-6 "
+    print(f"[3b] kernel vs plain version at the {len(new)} shapes phases 4-7 "
           f"launched that phase 3 did not check: {new}", flush=True)
     rows += check_kernel_in_child(new)
     done("3b", t0)
@@ -985,6 +1297,9 @@ def main() -> int:
         "shapes_checked": len(rows),
         # launches of each phase 6 run (trace ring, segments, resumes)
         "phase6_launches": p6_launches,
+        # launches of each phase 7 run (streamed query, fleet drains summed
+        # over their workers, retry, partial and its resume)
+        "serve_launches": p7_launches,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

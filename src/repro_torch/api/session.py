@@ -31,11 +31,12 @@ With `RuntimeConfig.trace_period > 0` every phase report carries its
 decoded superstep trace; with `ckpt_period > 0` phases run segmented, and
 `run(ckpt_dir=, resume_from=, should_stop=)` checkpoints, resumes
 (elastically, onto this session's miner count) and stops at a soft
-deadline with a partial report (DESIGN.md §11).
+deadline with a partial report (DESIGN.md §11).  `run(stream=...)`
+delivers the final top-k head to a callback while the rest of the result
+is still being reconstructed (the serving layer's top-k-first delivery).
 
-Not ported yet (ROADMAP.md queue 1): result streaming (`run(stream=...)`,
-item 9) and multi-host topologies (`topology`, item 10); asking for them
-raises NotImplementedError.
+Not ported yet (ROADMAP.md queue 1): multi-host topologies (`topology`,
+item 10); asking for one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -135,12 +136,6 @@ class _Program:
         self.calls = 0
 
 
-def _unported(what: str, item: int, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, item {item}: {name})"
-    )
-
-
 class MinerSession:
     """A persistent miner: one device, P virtual miners, one program cache."""
 
@@ -218,6 +213,15 @@ class MinerSession:
         self._resume_from = None
         self._should_stop = None
         self._phase_seq = 0
+        # one-shot ResultStream installed by run(stream=...), consumed by
+        # the first _build_results of the query, cleared in run()'s finally
+        self._stream = None
+
+    @property
+    def n_devices(self) -> int:
+        """The miner count, under the JAX session's name (one miner per
+        device there); the serving layer and launchers read it."""
+        return self.n_miners
 
     # -------------------------------------------------------------- programs
     def _schedule(self, cfg: EngineConfig):
@@ -530,6 +534,12 @@ class MinerSession:
             should_stop=None) -> MineReport:
         """Execute one first-class query object (api.query).
 
+        `stream` (a `repro_torch.results.ResultStream`) delivers the final
+        top-`head_k` patterns to a callback *during* result construction —
+        before full reconstruction finishes — for the serving layer's
+        top-k-first delivery (DESIGN.md §10).  The returned report is
+        identical with or without it.
+
         Fault tolerance (DESIGN.md §11; requires RuntimeConfig.ckpt_period
         > 0): `ckpt_dir` checkpoints each phase's frontier every segment;
         `resume_from` (usually a previous run's ckpt_dir, written by this
@@ -541,23 +551,19 @@ class MinerSession:
         (report.partial, results.complete == False) plus the checkpoint
         path to resume from.  `should_stop` is ignored when ckpt_period ==
         0 (the classic loop has no boundary to stop at).
-
-        `stream` raises NotImplementedError (ROADMAP.md queue 1, item 9).
         """
         if not isinstance(query, Query):
             raise TypeError(
                 f"run() takes a repro_torch.api.Query (e.g. "
                 f"SignificantPatternQuery(alpha=0.05)), got {type(query).__name__}"
             )
-        if stream is not None:
-            raise _unported("run(stream=...): streamed top-k delivery", 9,
-                            "serving")
         if (ckpt_dir or resume_from) and not self.runtime.ckpt_period:
             raise ValueError(
                 "ckpt_dir/resume_from need the segmented program: set "
                 "RuntimeConfig.ckpt_period > 0"
             )
         t0 = time.perf_counter()
+        self._stream = stream
         self._ckpt_dir = ckpt_dir
         self._resume_from = resume_from
         self._should_stop = should_stop if self.runtime.ckpt_period else None
@@ -567,6 +573,7 @@ class MinerSession:
                                   dataset=dataset.name):
                 report = query.run(self, dataset)
         finally:
+            self._stream = None
             self._ckpt_dir = None
             self._resume_from = None
             self._should_stop = None
@@ -621,6 +628,9 @@ class MinerSession:
             (phase_out.sig_occ, phase_out.sig_sup, phase_out.sig_pos_sup)
             if records is None else records
         )
+        # consume the one-shot stream installed by run(stream=...) — a
+        # multi-phase pipeline builds results exactly once, at the end
+        stream, self._stream = self._stream, None
         # the dataset was packed and uploaded exactly once; reconstruction
         # counts against its resident words (the whole [m_pad, W] tensor,
         # so it starts on the allocation's 16-byte boundary)
@@ -634,6 +644,7 @@ class MinerSession:
                 filter_host=filter_host, dropped=phase_out.emit_dropped,
                 item_names=dataset.item_names, statistic=statistic,
                 impl=self._resolve(dataset.bucket).kernel_impl,
+                stream=stream,
             )
 
     def _root_record(self, dataset: Dataset, phase_out: MineOutput,
@@ -691,6 +702,7 @@ class MinerSession:
                 filter_host=filter_host, statistic=statistic,
             )
         else:
+            self._stream = None  # the one-shot stream has nothing to carry
             results = ResultSet(
                 n_transactions=dataset.n_transactions, n_pos=dataset.n_pos,
                 alpha=alpha, min_sup=min_sup, correction_factor=max(k, 1),

@@ -14,8 +14,17 @@ version (`ref.support_count_ref`) is chosen by the dispatch in `ops.py`
 only for tensors on the CPU.
 
 `launches` counts the kernel launches made through `support_count_cuda`,
-and `launch_shapes` counts them by (B, M, W); a run resets both and reads
-them to show that its path went through the kernel, and at which shapes.
+and `launch_shapes` counts them by (B, M, W); a run resets both
+(`reset_counts`) and reads them to show that its path went through the
+kernel, and at which shapes.
+
+Sessions may launch from several threads at once (a serving fleet runs one
+worker thread per session), so the library is built and loaded under one
+lock, once per process, and the counters are bumped under another.  The
+launch itself holds a third: the C function sets the kernel's dynamic
+shared-memory limit, a setting of the whole process, just before it
+launches, and another thread's smaller setting in between would make the
+launch fail.  The lock is held only while the launch is enqueued.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -33,7 +43,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCE", "NVCC_FLAGS", "build", "build_log", "launch_shapes", "launches",
-           "support_count_cuda"]
+           "reset_counts", "support_count_cuda"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "support_count.cu"
 NVCC_FLAGS = (
@@ -49,6 +59,12 @@ launch_shapes: Counter = Counter()
 
 _lib = None
 _build_log = ""
+#: held while the library is built and loaded: one nvcc per process
+_load_lock = threading.Lock()
+#: held while `launches` and `launch_shapes` are read, bumped or reset
+_count_lock = threading.Lock()
+#: held from the kernel's shared-memory setting to its launch (C side)
+_launch_lock = threading.Lock()
 
 
 def _build_dir() -> Path:
@@ -108,24 +124,41 @@ def build_log() -> str:
 
 def _load():
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.sc_support_count.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.sc_support_count.restype = ctypes.c_int
-        lib.sc_error_string.argtypes = [ctypes.c_int]
-        lib.sc_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _load_lock:
+        if _lib is None:   # another thread may have loaded it while we waited
+            lib = ctypes.CDLL(str(build()))
+            lib.sc_support_count.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.sc_support_count.restype = ctypes.c_int
+            lib.sc_error_string.argtypes = [ctypes.c_int]
+            lib.sc_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
+
+
+def _count_launch(shape: tuple[int, int, int]) -> None:
+    global launches
+    with _count_lock:
+        launches += 1
+        launch_shapes[shape] += 1
+
+
+def reset_counts() -> None:
+    """Set `launches` to 0 and clear `launch_shapes`."""
+    global launches
+    with _count_lock:
+        launches = 0
+        launch_shapes.clear()
 
 
 def support_count_cuda(occ: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """occ [B, W] int32, db [M, W] int32 (item-major), both contiguous on
     one CUDA device, each starting on a 16-byte boundary -> S [B, M] int32,
     one kernel launch."""
-    global launches
     for name, t in (("occ", occ), ("db", db)):
         if t.device.type != "cuda":
             raise ValueError(f"support_count_cuda: {name} is on {t.device}, not CUDA")
@@ -151,13 +184,13 @@ def support_count_cuda(occ: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     lib = _load()
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream(occ.device).cuda_stream
-        rc = lib.sc_support_count(
-            occ.data_ptr(), db.data_ptr(), out.data_ptr(), b, m, w, stream
-        )
+        with _launch_lock:
+            rc = lib.sc_support_count(
+                occ.data_ptr(), db.data_ptr(), out.data_ptr(), b, m, w, stream
+            )
     if rc != 0:
         raise RuntimeError(
             f"support_count kernel launch failed: {lib.sc_error_string(rc).decode()}"
         )
-    launches += 1
-    launch_shapes[(b, m, w)] += 1
+    _count_launch((b, m, w))
     return out

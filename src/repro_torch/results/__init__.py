@@ -7,12 +7,13 @@ planted-signal scoring.
 """
 
 from .reconstruct import dedup_by_closure, reconstruct_closures
-from .resultset import Pattern, ResultSet, build_result_set
+from .resultset import Pattern, ResultSet, ResultStream, build_result_set
 from .scoring import score_planted
 
 __all__ = [
     "Pattern",
     "ResultSet",
+    "ResultStream",
     "build_result_set",
     "dedup_by_closure",
     "reconstruct_closures",

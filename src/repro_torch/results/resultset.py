@@ -18,8 +18,15 @@ Two filtering regimes:
     ``filter_host=True`` and the host keeps exactly those with exact
     P <= delta.
 
-The JAX version's streaming delivery (`ResultStream`) serves the serving
-layer and is not ported yet (ROADMAP.md queue 1, item 9).
+Streaming (DESIGN.md §10): pass a `ResultStream` and `build_result_set` processes
+records in significance order — P-values need only (sup, pos_sup), so they
+are computed for every record *before* any closure reconstruction — and
+invokes `on_head` with the final top-`head_k` patterns as soon as that head
+is provably complete (every unreconstructed record sorts strictly after the
+k-th), while the rest of the reconstruction is still running.  Each chunk
+is counted on the port's device (on the card: one kernel launch per chunk).
+The streamed head equals ``result.patterns[:head_k]`` of the returned
+ResultSet, which is itself identical to the non-streaming build.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from __future__ import annotations
 import json
 import math
 from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
@@ -37,9 +45,36 @@ from repro_torch.stats import get_statistic
 
 from .reconstruct import dedup_by_closure, reconstruct_closures
 
-__all__ = ["Pattern", "ResultSet", "build_result_set"]
+__all__ = ["Pattern", "ResultSet", "ResultStream", "build_result_set"]
 
 TSV_COLUMNS = ("rank", "items", "size", "support", "pos_support", "pvalue", "qvalue")
+
+
+@dataclass(frozen=True)
+class ResultStream:
+    """Incremental top-k delivery from `build_result_set` (DESIGN.md §10).
+
+    `on_head` is invoked exactly once per build, from the building thread,
+    with the final ``patterns[:head_k]`` — as soon as the head is provably
+    complete, which is typically long before the full record set has been
+    reconstructed (P-values are cheap margin arithmetic; closure
+    reconstruction is the popcount-GEMM that dominates).  `chunk` is the
+    number of records reconstructed between finality checks.
+    """
+
+    head_k: int
+    on_head: Callable[[list["Pattern"]], None]
+    chunk: int = 256
+
+    def __post_init__(self):
+        if not (isinstance(self.head_k, int) and self.head_k >= 1):
+            raise ValueError(
+                f"ResultStream.head_k must be an int >= 1, got {self.head_k!r}"
+            )
+        if not (isinstance(self.chunk, int) and self.chunk >= 1):
+            raise ValueError(
+                f"ResultStream.chunk must be an int >= 1, got {self.chunk!r}"
+            )
 
 
 @dataclass(frozen=True)
@@ -214,6 +249,7 @@ def build_result_set(
     statistic: str | None = "fisher",
     device=None,
     impl: str = "auto",
+    stream: ResultStream | None = None,
 ) -> ResultSet:
     """Emitted records -> deduped, exactly-(re)tested, sorted ResultSet.
 
@@ -225,6 +261,8 @@ def build_result_set(
     resident copy); uint32 numpy words are uploaded to `device` (default:
     the card; pass device="cpu" to run on the CPU).  `impl` picks the
     support count of closure reconstruction ("auto": the kernel on the card).
+    `stream` delivers the top-`head_k` head to a callback mid-build (see
+    `ResultStream`); the returned ResultSet is identical either way.
     """
     occ = np.asarray(occ, dtype=np.uint32).reshape(-1, db_bits.shape[1])
     if isinstance(db_bits, torch.Tensor):
@@ -235,6 +273,25 @@ def build_result_set(
     pos_sup = np.asarray(pos_sup, dtype=np.int64).reshape(-1)
 
     k = max(int(correction_factor), 1)
+    if stream is not None:
+        patterns = _build_patterns_streaming(
+            occ, sup, pos_sup, db_dev, n=n, n_pos=n_pos, k=k, delta=delta,
+            filter_host=filter_host, statistic=statistic, stream=stream,
+            impl=impl,
+        )
+        return ResultSet(
+            patterns=patterns,
+            n_transactions=n,
+            n_pos=n_pos,
+            alpha=alpha,
+            min_sup=min_sup,
+            correction_factor=int(correction_factor),
+            delta=delta,
+            n_dropped=int(dropped),
+            item_names=tuple(item_names) if item_names is not None else None,
+            statistic=statistic,
+        )
+
     closures = reconstruct_closures(occ, sup, db_dev, impl=impl)
     closures, sup, pos_sup = dedup_by_closure(closures, sup, pos_sup)
 
@@ -282,7 +339,77 @@ def build_result_set(
 
 
 def _sort_key(statistic: str | None):
-    """The one canonical pattern ordering."""
+    """The one canonical pattern ordering (streaming finality depends on it:
+    the partial key (pvalue, -support) must be a prefix of this full key)."""
     if statistic is None:
         return lambda p: (-p.support, p.items)
     return lambda p: (p.pvalue, -p.support, p.items)
+
+
+def _build_patterns_streaming(
+    occ, sup, pos_sup, db_dev, *, n, n_pos, k, delta, filter_host,
+    statistic, stream: ResultStream, impl: str,
+) -> list[Pattern]:
+    """Reconstruct records in significance order, stream the head early.
+
+    P-values depend only on the margins (sup, pos_sup, n, n_pos), so every
+    record is tested *before* any reconstruction; records are then
+    reconstructed most-significant-first in `stream.chunk` batches.  Two
+    records with the same closure are exact duplicates (the closure fixes
+    occ, hence sup/pos_sup/P), so incremental dedup keeps content identical
+    to the batch path's first-in-emission-order dedup.  The head is final
+    once the next unreconstructed record's (pvalue, -support) key sorts
+    strictly after the current k-th pattern's — the items tie-break can
+    only reorder *within* an equal (pvalue, -support) class.
+    """
+    n_rec = len(sup)
+    full_key = _sort_key(statistic)
+    if statistic is None:
+        pvals = None
+        idx = np.arange(n_rec)
+        order = idx[np.lexsort((idx, -sup))] if n_rec else idx
+        partial = lambda j: (-int(sup[j]),)                    # noqa: E731
+        partial_p = lambda p: (-p.support,)                    # noqa: E731
+    else:
+        pvals = (get_statistic(statistic).pvalue(sup, pos_sup, n, n_pos)
+                 if n_rec else np.zeros(0))
+        idx = np.flatnonzero(pvals <= delta) if filter_host else np.arange(n_rec)
+        order = (idx[np.lexsort((idx, -sup[idx], pvals[idx]))]
+                 if len(idx) else idx)
+        partial = lambda j: (float(pvals[j]), -int(sup[j]))    # noqa: E731
+        partial_p = lambda p: (p.pvalue, -p.support)           # noqa: E731
+
+    seen: set[tuple[int, ...]] = set()
+    patterns: list[Pattern] = []
+    head_sent = False
+    for lo in range(0, max(len(order), 1), stream.chunk):
+        sel = order[lo:lo + stream.chunk]
+        # occ[sel] is a gather, so the chunk is a fresh array: its upload
+        # starts on an allocation's 16-byte boundary, as the kernel needs
+        closures = reconstruct_closures(occ[sel], sup[sel], db_dev, impl=impl)
+        for j, c in zip(sel, closures):
+            if c in seen:
+                continue
+            seen.add(c)
+            if pvals is None:
+                p = q = float("nan")
+            else:
+                p = float(pvals[j])
+                q = min(1.0, p * k)
+            patterns.append(Pattern(
+                items=c, support=int(sup[j]), pos_support=int(pos_sup[j]),
+                pvalue=p, qvalue=q,
+            ))
+        if head_sent:
+            continue
+        patterns.sort(key=full_key)
+        nxt = lo + stream.chunk
+        if nxt >= len(order):
+            head_sent = True   # everything reconstructed: the head is final
+        elif (len(patterns) >= stream.head_k
+              and partial(order[nxt]) > partial_p(patterns[stream.head_k - 1])):
+            head_sent = True
+        if head_sent:
+            stream.on_head(patterns[: stream.head_k])
+    patterns.sort(key=full_key)
+    return patterns

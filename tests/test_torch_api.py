@@ -460,10 +460,10 @@ def test_validation_errors_match_jax(name, shared_sessions):
     "trace_period", "ckpt_period", "topology", "kernel_blocks", "stream",
     "ckpt_dir", "resume_from", "device_mismatch"])
 def test_unported_options_raise(case):
-    """Topologies (item 10) and streaming (item 9) still raise, naming their
-    item; the trace ring and the segmented program are ported (item 7 and
-    8: the session runs them), and ckpt_dir/resume_from without
-    ckpt_period are refused as the JAX session refuses them."""
+    """Topologies (item 10) still raise, naming their item; the trace ring,
+    the segmented program and streaming are ported (items 7, 8 and 9: the
+    session runs them), and ckpt_dir/resume_from without ckpt_period are
+    refused as the JAX session refuses them."""
     db, labels = small_problem(0)
     _, td = datasets(db, labels)
     q = tapi.SignificantPatternQuery()
@@ -492,10 +492,16 @@ def test_unported_options_raise(case):
         with pytest.raises(ValueError, match="lies on cuda:0"):
             session.run(td, q)
         return
-    exc, match = ((NotImplementedError, "item 9") if case == "stream"
-                  else (ValueError, "need the segmented program"))
-    with pytest.raises(exc, match=match):
-        session.run(td, q, **{case: object() if case == "stream" else "dir"})
+    if case == "stream":
+        from repro_torch.results import ResultStream
+
+        heads = []
+        rep = session.run(td, q, stream=ResultStream(head_k=2, on_head=heads.append))
+        assert len(heads) == 1 and heads[0] == rep.results.patterns[:2]
+        assert rep.results.to_json() == session.run(td, q).results.to_json()
+        return
+    with pytest.raises(ValueError, match="need the segmented program"):
+        session.run(td, q, **{case: "dir"})
 
 
 @pytest.mark.parametrize("what", ["session", "dataset", "placeholder", "paper"])

@@ -1,5 +1,6 @@
-"""The port's launcher (`python -m repro_torch.launch.mine`) against the JAX
-package's (`python -m repro.launch.mine`).
+"""The port's launchers (`python -m repro_torch.launch.mine` and
+`.mine_serve`) against the JAX package's (`python -m repro.launch.mine`
+and `.mine_serve`).
 
 The JAX launcher runs in a subprocess, because `--devices N` forces the
 simulated device count before JAX starts; the port's runs in-process on
@@ -19,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.launch import mine as tmine  # noqa: E402
+from repro_torch.launch import mine_serve as tmine_serve  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -173,3 +175,56 @@ def test_port_launcher_queries_and_artifacts(query, tmp_path, capsys):
         for e in json.load(open(trace))["traceEvents"])
     assert blob["statistic"] == (None if blob["query"] == "closed-frequent"
                                  else "chi2")
+
+
+#: the serving launcher's CI-sized run, at 4 miners per session
+SERVE_ARGS = ["--smoke", "--devices", "4", "--verbose"]
+#: the values of each --verbose query record both launchers must agree on
+QUERY_KEYS = ("q", "cold", "outcome", "alpha", "min_sup", "k", "significant")
+#: the summary counts both launchers must agree on
+SUMMARY_KEYS = ("queries", "ok", "partial", "failed", "warm_violations",
+                "warmup_compiles")
+
+
+def _serve_records(stderr: str, event: str) -> list[dict]:
+    return [r for r in (json.loads(line) for line in stderr.splitlines()
+                        if line.startswith("{")) if r["event"] == event]
+
+
+def test_serve_launcher_matches_jax(tmp_path, capsys):
+    """`mine_serve --smoke --devices 4` of both packages serve the same
+    queries with the same answers and the same warmup and cache counts."""
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    jax_out, port_out = tmp_path / "jax.json", tmp_path / "port.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro.launch.mine_serve", *SERVE_ARGS,
+         "--json-out", str(jax_out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        rc = tmine_serve.main(SERVE_ARGS + ["--device", "cpu", "--json-out",
+                                            str(port_out)])
+    finally:
+        _, jax_err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, jax_err[-4000:]
+    assert rc == 0
+    port_err = capsys.readouterr().err
+    want = [{k: r[k] for k in QUERY_KEYS}
+            for r in _serve_records(jax_err, "query")]
+    got = [{k: r[k] for k in QUERY_KEYS}
+           for r in _serve_records(port_err, "query")]
+    assert len(want) == 4 and sorted(got, key=lambda r: r["q"]) == sorted(
+        want, key=lambda r: r["q"])
+    jblob, tblob = (json.load(open(p)) for p in (jax_out, port_out))
+    assert {k: tblob[k] for k in SUMMARY_KEYS} == {k: jblob[k] for k in SUMMARY_KEYS}
+    assert tblob["devices_per_session"] == jblob["devices_per_session"] == 4
+    for k in ("programs", "misses"):
+        assert tblob["cache"][k] == jblob["cache"][k], k
+    assert tblob["failed"] == 0 and tblob["warm_violations"] == 0
+
+
+def test_serve_launcher_refuses_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tmine_serve.main(["--smoke"])

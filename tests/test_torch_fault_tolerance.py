@@ -32,6 +32,7 @@ from repro_torch.api import (  # noqa: E402
 )
 from repro_torch.ckpt.mining import ProvenanceMismatch  # noqa: E402
 from repro_torch.obs.validate import validate_prometheus_text  # noqa: E402
+from repro_torch.results import ResultStream  # noqa: E402
 from repro_torch.testing import (  # noqa: E402
     FaultPlan,
     SimulatedFault,
@@ -111,8 +112,11 @@ def test_ckpt_flags_require_ckpt_period(tmp_path):
     # should_stop is ignored by the classic loop, as in the JAX session
     rep = plain.run(ds, Q, should_stop=lambda: True)
     assert not rep.partial and rep.results.complete
-    with pytest.raises(NotImplementedError, match="item 9"):
-        plain.run(ds, Q, stream=object())
+    # a stream needs no segments either: its head is the classic run's
+    heads = []
+    streamed = plain.run(ds, Q, stream=ResultStream(head_k=3, on_head=heads.append))
+    assert heads == [rep.results.patterns[:3]]
+    assert streamed.results.to_json() == rep.results.to_json()
 
 
 def test_ckpt_writes_counted_in_phase_reports(tmp_path):

@@ -221,8 +221,11 @@ def test_port_imports_no_jax_and_no_repro():
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import repro_torch\n"
+        "walked = []\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    walked.append(m.name)\n"
+        "print(json.dumps(walked))\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "      if m in ('jax', 'repro', 'ml_dtypes')\n"
         "      or m.startswith(('jax.', 'repro.', 'ml_dtypes.')))))\n"
@@ -231,7 +234,12 @@ def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    walked, foreign = (json.loads(line) for line in out.stdout.strip().splitlines()[-2:])
+    assert foreign == []
+    # the serving layer is among what was imported
+    assert {f"repro_torch.serve.{m}" for m in (
+        "batch", "fleet", "loadgen", "request", "scheduler", "stats_util")} <= set(walked)
+    assert "repro_torch.launch.mine_serve" in walked
 
 
 def test_entry_points_raise_without_cuda():

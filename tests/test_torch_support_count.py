@@ -190,3 +190,62 @@ def test_cuda_kernel_refuses_misaligned_db():
     with pytest.raises(ValueError, match="16-byte boundary"):
         kernel.support_count_cuda(occ, view)
     assert kernel.launches == before
+
+
+def test_load_builds_once_and_counts_lose_nothing_across_threads(monkeypatch):
+    """Eight threads that load the kernel's library at the same moment build
+    it once and share one handle; eight threads bumping the launch counters
+    lose no count.  (`build` and `ctypes.CDLL` are stand-ins here: there is
+    no nvcc.)"""
+    import ctypes
+    import sys
+    import threading
+    import time
+    import types
+
+    built = []
+
+    def slow_build():
+        built.append(threading.get_ident())
+        time.sleep(0.05)           # every other thread arrives meanwhile
+        return "libsupport_count_stub.so"
+
+    monkeypatch.setattr(kernel, "build", slow_build)
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: types.SimpleNamespace(
+        path=path, sc_support_count=types.SimpleNamespace(),
+        sc_error_string=types.SimpleNamespace()))
+    monkeypatch.setattr(kernel, "_lib", None)
+    start = threading.Barrier(8)
+    handles = []
+
+    def load():
+        start.wait(timeout=10)
+        handles.append(kernel._load())
+
+    threads = [threading.Thread(target=load) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in threads)
+    assert len(built) == 1 and len(handles) == 8
+    assert all(h is handles[0] for h in handles)
+
+    n, shape = 5000, (16, 2048, 32)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)    # switch threads as often as possible
+    try:
+        kernel.reset_counts()
+        bumpers = [threading.Thread(target=lambda: [
+            kernel._count_launch(shape) for _ in range(n)]) for _ in range(8)]
+        for t in bumpers:
+            t.start()
+        for t in bumpers:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in bumpers)
+    assert kernel.launches == 8 * n
+    assert kernel.launch_shapes == {shape: 8 * n}
+    kernel.reset_counts()
+    assert kernel.launches == 0 and not kernel.launch_shapes
