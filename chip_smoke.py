@@ -51,8 +51,7 @@ run on any error (each prints its wall time):
    at a concurrency of the fleet size: every served report equals a direct
    warm run of the same request, the kernel launches summed over the fleet
    equal the direct runs', no request compiles; qps, latency percentiles
-   and the device's idle share; the fleet of 4 once more with the
-   interpreter switching threads every 0.1 ms; (c) a request retried to success after an
+   and the device's idle share while every worker serves; (c) a request retried to success after an
    injected failure, and one whose deadline stops it mid-mine ("partial"),
    whose checkpoint resumes to (a)'s answer; (d) the `mine_serve` CLI;
 and, after them, the kernel against the plain version at every shape
@@ -133,14 +132,14 @@ TRACE_ARRAYS = ("steps", "lam", "n_hungry", "fired", "depth", "popped",
                 "pushed", "closed", "emitted", "donated", "received")
 #: phase 7b: the requests each fleet drains — datasets reseeded 0..15 in
 #: (a)'s bucket (seed 0 is (a)'s), alpha cycling, `fused23` with Fisher's
-#: test — and the fleets, (size, the interpreter's thread switch interval
-#: in s or None for its default of 5 ms), each drained at a concurrency of
-#: its size.  The last drains the fleet of 4 again with threads switched
-#: every 0.1 ms, to show how much of what a bigger fleet loses is its
-#: workers waiting for the interpreter lock; it is not profiled.
+#: test — and the fleet sizes, each drained at a concurrency of its size
 SERVE_REQUESTS = 16
 SERVE_ALPHAS = (0.05, 0.01)
-SERVE_FLEETS = ((1, None), (2, None), (4, None), (4, 1e-4))
+SERVE_FLEETS = (1, 2, 4)
+#: the idle share's profile: (s after a pass starts, s of window).  The
+#: pass serves requests 1..size, one per worker, each longer than the
+#: window's end even alone (request 1 is the longest of the 16)
+IDLE_WINDOW = (0.2, 0.6)
 
 def make_query(tag: str):
     """Phase 4's query object for `tag` (a key of QUERY_EXPECT)."""
@@ -726,16 +725,20 @@ def phase6(ds_a, rep_a, launched: set) -> dict:
     return launches
 
 
-def _busy_union_s(prof) -> float | None:
-    """Seconds of a profile in which at least one kernel ran on the card:
-    the union of the CUDA activities' intervals, since kernels of two
-    workers' streams may overlap (host annotations left out); None when
-    the profile holds no device activity."""
+def _busy_union_s(prof, until_s: float) -> float | None:
+    """Seconds of a profile's first `until_s` in which at least one kernel
+    ran on the card: the union of the CUDA activities' intervals (times
+    from the profile's start), since kernels of two workers' streams may
+    overlap (host annotations left out); None when the profile holds no
+    device activity."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+    until_us = until_s * 1e6
+    spans = sorted((max(e.time_range.start, 0.0), min(e.time_range.end, until_us))
+                   for e in prof.events()
                    if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
+    spans = [(lo, hi) for lo, hi in spans if hi > lo]
     if not spans:
         return None
     busy, reach = 0.0, -math.inf
@@ -830,8 +833,7 @@ def phase7(ds_a, session_a, rep_a, launched: set) -> dict:
                 statistic="fisher")))
         print(f"[7b] {SERVE_REQUESTS} requests (seeds 0-{SERVE_REQUESTS - 1}, alpha "
               f"{SERVE_ALPHAS}, fused23/Fisher), direct on the warm session, then "
-              f"served by fleets of {[n for n, _ in SERVE_FLEETS]} sessions of P = 8",
-              flush=True)
+              f"served by fleets of {SERVE_FLEETS} sessions of P = 8", flush=True)
         direct_sha, direct_walls, direct_total = [], [], 0
         for i, (ds, q) in enumerate(work):
             rep, wall, n, shapes = _counted(lambda: session_a.run(ds, q))
@@ -858,7 +860,7 @@ def phase7(ds_a, session_a, rep_a, launched: set) -> dict:
             await asyncio.gather(*[client() for _ in range(service.size)])
             return results
 
-        async def serve(size, profiled):
+        async def serve(size):
             svc = MiningService(size=size, n_miners=8, warmups=warm)
             compiled = await svc.start()
             streams = {w.stream for w in svc.fleet.workers}
@@ -870,68 +872,52 @@ def phase7(ds_a, session_a, rep_a, launched: set) -> dict:
             res = await drain(svc, work)
             wall_d = time.perf_counter() - t0   # each request synchronised
             n_d, shapes_d = kernel.launches, dict(kernel.launch_shapes)
-            if not profiled:
-                await svc.stop()
-                return compiled, res, wall_d, n_d, shapes_d, None, None
-            # the idle share: a profiled pass of one request per worker, the
-            # device's activity only (the host's ops of four threads would
-            # cost a minute of post-processing); with the host's too should
-            # that show no device time
-            busy_p = None
-            for acts in ([ProfilerActivity.CUDA],
-                         [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-                torch.cuda.synchronize()
-                with profile(activities=acts) as prof:
-                    tp = time.perf_counter()
-                    await drain(svc, work[:size])
-                    torch.cuda.synchronize()
-                    wall_p = time.perf_counter() - tp
-                busy_p = _busy_union_s(prof)
-                if busy_p is not None:
-                    break
+            # the idle share: the device's activity (only: the host's ops
+            # of four threads would take minutes to post-process) over a
+            # window of a second pass while every worker serves a request
+            lead, window = IDLE_WINDOW
+            second = asyncio.ensure_future(drain(svc, work[1:1 + size]))
+            await asyncio.sleep(lead)
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            tp = time.perf_counter()
+            await asyncio.sleep(window)
+            inside = not second.done()
+            wall_p = time.perf_counter() - tp
+            prof.stop()
+            await second
             await svc.stop()
-            return compiled, res, wall_d, n_d, shapes_d, busy_p, wall_p
+            if not inside:
+                raise AssertionError(f"(7b) fleet {size}: the pass ended inside "
+                                     "the profile's window")
+            return (compiled, res, wall_d, n_d, shapes_d, _busy_union_s(prof, wall_p),
+                    wall_p)
 
-        for size, switch in SERVE_FLEETS:
-            name = f"fleet of {size}" + (
-                "" if switch is None else f", switch interval {switch * 1e3:g} ms")
-            default_switch = sys.getswitchinterval()
+        for size in SERVE_FLEETS:
             t7 = time.perf_counter()
-            try:
-                if switch is not None:
-                    sys.setswitchinterval(switch)
-                compiled, res, wall_d, n_d, shapes_d, busy_p, wall_p = asyncio.run(
-                    serve(size, profiled=switch is None))
-            finally:
-                sys.setswitchinterval(default_switch)
+            compiled, res, wall_d, n_d, shapes_d, busy_p, wall_p = asyncio.run(serve(size))
             t7 = time.perf_counter() - t7
             launched.update(shapes_d)
-            launches[f"7b {name}"] = n_d
+            launches[f"7b fleet {size}"] = n_d
             bad = [i for i, r in enumerate(res)
                    if not r.ok or results_sha256(r.report.results) != direct_sha[i]]
             cold = sum(1 for r in res if r.ok and r.report.cold)
             if bad or cold or n_d != direct_total:
                 raise AssertionError(
-                    f"(7b) {name}: requests {bad} differ from their direct "
+                    f"(7b) fleet {size}: requests {bad} differ from their direct "
                     f"runs, warm_violations {cold}, kernel launches {n_d} "
                     f"(direct {direct_total})")
             if expect_diffs(res[0].report, expect_a):
-                raise AssertionError(f"(7b) {name}: seed 0 != (a)")
+                raise AssertionError(f"(7b) fleet {size}: seed 0 != (a)")
             lat = [r.total_s for r in res]
-            if switch is not None:
-                busy_txt = "not profiled"
-            elif busy_p is None:
+            if busy_p is None:
                 busy_txt = "the profiler saw no device time (idle not measured)"
             else:
-                per_req = busy_p / size
-                busy_txt = (f"device busy {per_req * 1e3:.3f} ms per request "
-                            f"(profiled pass of {size}: union busy "
-                            f"{busy_p * 1e3:.3f} ms of {wall_p:.3f} s), idle "
-                            f"{100 * (1 - per_req * len(res) / wall_d):.2f}% of "
-                            f"the drain")
-            print(f"  (7b) {name} ({t7:.1f} s with its warmup"
-                  f"{'' if switch is not None else ' and profiled pass'}): "
-                  f"warmup built {compiled} programs; "
+                busy_txt = (f"device busy {busy_p * 1e3:.3f} ms of a {wall_p:.3f} s "
+                            f"window with {size} requests in flight: idle "
+                            f"{100 * (1 - busy_p / wall_p):.2f}%")
+            print(f"  (7b) fleet of {size} ({t7:.1f} s with its warmup and "
+                  f"profiled pass): warmup built {compiled} programs; "
                   f"{len(res)} served in {wall_d:.3f} s = "
                   f"{len(res) / wall_d:.3f} qps; latency p50 "
                   f"{percentile(lat, 50):.4f} p90 {percentile(lat, 90):.4f} max "
