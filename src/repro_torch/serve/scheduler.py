@@ -155,8 +155,13 @@ class Scheduler:
         if self._dispatcher is not None:
             await self._dispatcher
             self._dispatcher = None
-        while self._batches:  # batches can spawn rebuild tasks; drain all
-            await asyncio.gather(*self._batches)
+        # drain every batch and the rebuild tasks a finishing batch adds.
+        # Wait only on tasks not yet done: a finished task leaves _batches
+        # when its discard callback runs, and that callback may still be
+        # queued; gather over done tasks returns without yielding, so a
+        # loop on `while self._batches` could spin forever.
+        while pending := [t for t in self._batches if not t.done()]:
+            await asyncio.gather(*pending)
         # flush requeue callbacks still in flight from worker threads, then
         # resolve every request parked in retry backoff as a terminal error
         await asyncio.sleep(0)

@@ -19,6 +19,9 @@ Three parts, all on the CPU (`device="cpu"`):
 
 import asyncio
 import math
+import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -40,6 +43,7 @@ from repro.data.synthetic import SyntheticSpec, generate  # noqa: E402
 from repro_torch.stats import get_statistic  # noqa: E402
 
 CFG = dict(expand_batch=8)
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -272,6 +276,11 @@ async def scripted(serve, testing, api):
     out["rebuilt"] = rebuilt
     out["worker"] = (sched.fleet.workers[0].broken,
                      sched.fleet.workers[0].failures)
+    # the JAX scheduler's stop() spins if a finished batch's discard
+    # callback is still queued; let those callbacks run first (the port's
+    # stop() yields on its own, see test_stop_drains_a_finished_batch_whose_
+    # discard_is_queued)
+    await _until(lambda: not sched._batches, timeout=10)
     await sched.stop()
     with pytest.raises(serve.AdmissionError) as stopped:
         sched.submit(FakeDataset(bucket_a, "late"), q)
@@ -290,6 +299,7 @@ async def scripted(serve, testing, api):
         reqs = [sched.submit(FakeDataset(bucket_a, f"w{i}"), q)
                 for i in range(12)]
         results = await asyncio.gather(*[r.future for r in reqs])
+    await _until(lambda: not sched._batches, timeout=10)
     await sched.stop()
     out["deaths"] = (sorted(r.outcome for r in results),
                      sum(r.attempts for r in results),
@@ -311,6 +321,58 @@ def test_scheduler_scenario_matches_jax():
     assert want["breaker"] == ("ok", 1, 0, 0, 4) and want["rebuilt"] == [0]
     assert want["ran"] == ["r0", "a0", "a1", "b0", "retry", "breaker"]
     assert want["deaths"][:2] == (["ok"] * 12, 18)
+
+
+STOP_RACE = r"""
+import asyncio, contextlib
+import repro_torch.serve as serve
+
+
+class Idle:  # a session the scenario never runs
+    n_devices = 1
+
+
+async def main():
+    sched = serve.Scheduler(serve.SessionFleet([Idle()]), serve.ServeConfig())
+    await sched.start()
+    # no dispatcher: stop() then reaches its drain without yielding first
+    sched._dispatcher.cancel()
+    with contextlib.suppress(asyncio.CancelledError):
+        await sched._dispatcher
+    sched._dispatcher = None
+    woken = asyncio.get_running_loop().create_future()
+
+    async def batch():
+        woken.set_result(None)  # queues this coroutine's wakeup first ...
+
+    task = asyncio.create_task(batch())
+    sched._batches.add(task)
+    task.add_done_callback(sched._batches.discard)  # ... and this after it
+    await woken
+    assert task.done() and task in sched._batches  # the race, built
+    await sched.stop()
+    assert not sched._batches
+    print("stopped")
+
+
+asyncio.run(main())
+"""
+
+
+def test_stop_drains_a_finished_batch_whose_discard_is_queued():
+    """`Scheduler.stop()` reached while a finished batch task still sits in
+    `_batches` (its discard callback queued behind the caller's wakeup)
+    returns.  A drain that awaits gather over done tasks never yields to
+    the loop and spins, so the scenario runs in a subprocess with a
+    timeout of its own."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    try:
+        r = subprocess.run([sys.executable, "-c", STOP_RACE], env=env,
+                           capture_output=True, text=True, timeout=30)
+    except subprocess.TimeoutExpired:
+        pytest.fail("Scheduler.stop() spun on a finished batch for 30 s")
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.split() == ["stopped"]
 
 
 def test_port_serve_exports_the_jax_names():
