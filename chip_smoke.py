@@ -54,8 +54,15 @@ run on any error (each prints its wall time):
    and the device's idle share while every worker serves; (c) a request retried to success after an
    injected failure, and one whose deadline stops it mid-mine ("partial"),
    whose checkpoint resumes to (a)'s answer; (d) the `mine_serve` CLI;
+8. topology (`repro_torch.topo`): (a) query (a) warm at forced 2x4 and
+   4x2 (the hierarchical lifeline schedule over the same 8 miners), each
+   equal to the JAX package's forced run (supersteps, per-miner stats,
+   steal volume by named round) and to flat (a)'s ResultSet, with its
+   wall and launches (and 2x4's idle share); (b) a gloo cluster of 2 processes x 4
+   miners on the one card (`bootstrap.launch_local_cluster`), each process
+   equal to (a)'s 2x4 run and launching the kernel at B = 16 x 4;
 and, after them, the kernel against the plain version at every shape
-phases 4-7 launched that phase 3 did not check (3b).
+phases 4-8 launched that phase 3 did not check (3b).
 
 The second-to-last line is a JSON object with the kernel's numbers; the
 last is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -127,6 +134,35 @@ TRACE_EXPECT = dict(digest="14bc53989c293a99", wrap_cap=64, wrap_dropped=[61, 40
 FRONTIER_EXPECT = dict(problem="hapmap_dom_20", k=128, steps={
     "00_lamp1/step_128": "95b122908f26e5ce",
     "00_lamp1/step_256": "fee30ccf5d4ec112"})
+#: phase 8a: query (a) at forced topologies (P = 8, hierarchical lifeline
+#: schedule), traced every superstep: each phase's supersteps, the digest
+#: of its per-miner stats (`stats_digest`) and the nodes donated in each
+#: named steal round, from the JAX package's forced runs on eight devices
+#: (tests/test_torch_topo.py); the ResultSet is query (a)'s
+TOPO_EXPECT = {
+    "2x4": dict(shape=[2, 4], supersteps=[124, 103],
+                stats_sha256=["e443757d3fba1085", "48c143a3d9c93ac8"],
+                donated_by_round=[
+                    {"loc_rand0": 244, "x_rand0": 354, "loc_hc0": 354, "x_hc0": 228,
+                     "loc_rand1": 90, "loc_hc1": 53, "loc_rand2": 229,
+                     "loc_rand3": 626},
+                    {"loc_rand0": 354, "x_rand0": 193, "loc_hc0": 166, "x_hc0": 803,
+                     "loc_rand1": 443, "loc_hc1": 16, "loc_rand2": 263,
+                     "loc_rand3": 388}]),
+    "4x2": dict(shape=[4, 2], supersteps=[133, 105],
+                stats_sha256=["b901367ce93b9e05", "56a992176e36900c"],
+                donated_by_round=[
+                    {"loc_rand0": 252, "x_rand0": 252, "loc_hc0": 235, "x_hc0": 304,
+                     "loc_rand1": 187, "x_rand1": 317, "loc_rand2": 235,
+                     "x_hc1": 711, "loc_rand3": 53},
+                    {"loc_rand0": 177, "x_rand0": 642, "loc_hc0": 370, "x_hc0": 289,
+                     "loc_rand1": 105, "x_rand1": 176, "loc_rand2": 200,
+                     "x_hc1": 374, "loc_rand3": 20}]),
+}
+#: phase 8b: a gloo cluster of this many processes x miners each on the
+#: one card, running query (a) under the hierarchical schedule of the same
+#: shape (so it equals 8a's 2x4 run)
+CLUSTER = (2, 4)
 #: a SuperstepTrace's arrays, in the order `trace_digest` hashes them
 TRACE_ARRAYS = ("steps", "lam", "n_hungry", "fired", "depth", "popped",
                 "pushed", "closed", "emitted", "donated", "received")
@@ -226,6 +262,13 @@ def trace_digest(traces) -> str:
         for f in TRACE_ARRAYS:
             h.update(np.ascontiguousarray(getattr(tr, f), np.int32).tobytes())
     return h.hexdigest()[:16]
+
+
+def stats_digest(stats: dict) -> str:
+    """First 16 hex digits of the SHA-256 of a phase's per-miner stats
+    ({name: [P] counts}) as sorted JSON."""
+    rows = {k: [int(x) for x in np.asarray(v).tolist()] for k, v in stats.items()}
+    return hashlib.sha256(json.dumps(rows, sort_keys=True).encode()).hexdigest()[:16]
 
 
 def frontier_digest(carry: dict, fields) -> str:
@@ -996,6 +1039,118 @@ def phase7(ds_a, session_a, rep_a, launched: set) -> dict:
     return launches
 
 
+def phase8(ds_a, rep_a, launched: set) -> dict:
+    """Phase 8: topology on the card (8a forced shapes, 8b a gloo cluster).
+
+    `ds_a` is phase 4's 1,191-item Dataset on the card and `rep_a` the main
+    path's report of query (a).  Every run adds its kernel launch shapes to
+    `launched` (3b checks them).  Returns {run: kernel launches}.
+    """
+    from repro_torch.api import MinerSession, RuntimeConfig
+    from repro_torch.topo import Topology, bootstrap
+    from repro_torch.topo.worker import WORKER
+
+    sha_a = QUERY_EXPECT["a"][1]["results_sha256"]
+    launches = {}
+    t8 = time.perf_counter()
+
+    def check(tag, rep, want, who):
+        bad = []
+        if results_sha256(rep.results) != sha_a:
+            bad.append("results_sha256")
+        if [p.supersteps for p in rep.phases] != want["supersteps"]:
+            bad.append(f"supersteps {[p.supersteps for p in rep.phases]}")
+        if [stats_digest(p.output.stats) for p in rep.phases] != want["stats_sha256"]:
+            bad.append("stats")
+        if bad:
+            raise AssertionError(f"(8a) {tag} {who} != the JAX package's forced run: {bad}")
+
+    # ---- 8a: forced shapes on one process; the first one profiled too (a
+    # profile's post-processing costs tens of seconds on a slow host)
+    for i, (tag, want) in enumerate(TOPO_EXPECT.items()):
+        topo = Topology(*want["shape"])
+        untraced = MinerSession(8, runtime=RuntimeConfig(topology=topo))
+        traced = MinerSession(8, runtime=RuntimeConfig(topology=topo, trace_period=1))
+        _, cold, _, _ = _counted(lambda: untraced.run(ds_a, make_query("a")))
+        rep, wall, n_launch, shapes = _counted(lambda: untraced.run(ds_a, make_query("a")))
+        launched.update(shapes)
+        launches[f"8a {tag}"] = n_launch
+        check(tag, rep, want, "warm")
+        if n_launch <= 0 or any(p.kernel_impl != "cuda" for p in rep.phases):
+            raise AssertionError(f"(8a) {tag}: {n_launch} kernel launches")
+        rep_t = traced.run(ds_a, make_query("a"))
+        check(tag, rep_t, want, "traced")
+        donated = [{k: v["donated"] for k, v in p.steal_by_round.items()}
+                   for p in rep_t.phases]
+        if donated != want["donated_by_round"]:
+            raise AssertionError(f"(8a) {tag}: steal by round {donated}")
+        tiers = {v["tier"] for p in rep_t.phases for v in p.steal_by_round.values()}
+        steps = sum(p.supersteps for p in rep.phases)
+        print(f"  (8a) {tag}: cold {cold:.3f} s, warm {wall:.3f} s "
+              f"(flat (a) {rep_a.wall_s:.3f} s in phase 4); supersteps "
+              f"{'+'.join(str(p.supersteps) for p in rep.phases)} ({steps / wall:.1f}/s); "
+              f"kernel launches {n_launch} {shapes}; steals "
+              f"{sum(p.steals for p in rep.phases)}; tiers {sorted(tiers)}, fairness "
+              f"{[{k: round(v, 4) for k, v in p.tier_fairness.items()} for p in rep_t.phases]}"
+              f"; = JAX forced {tag} and flat (a)'s sha", flush=True)
+        if i > 0:
+            continue
+        rep_p, dev, wall_p = _profile(lambda: untraced.run(ds_a, make_query("a")))
+        bad = report_diffs(rep, rep_p)
+        if bad:
+            raise AssertionError(f"(8a) {tag}: profiled run differs in {bad}")
+        seen = sum(n for k, (n, _) in dev.items() if "support_count_kernel" in k)
+        if seen == n_launch:
+            _profile_line(f"(8a) {tag}", dev, wall, wall_p, steps=steps)
+        else:
+            print(f"  profile of (8a) {tag}: the profiler saw {seen} of {n_launch} "
+                  "kernel launches (idle share not measured)", flush=True)
+    print(f"  (8a) done in {time.perf_counter() - t8:.1f} s", flush=True)
+
+    # ---- 8b: a gloo cluster of processes on the one card
+    n_proc, per = CLUSTER
+    want = TOPO_EXPECT[f"{n_proc}x{per}"]
+    spec = dict(dataset={"paper": "hapmap_dom_20", "scale_items": 0.1},
+                query=dict(zip(("pipeline", "statistic"), QUERY_EXPECT["a"][0])),
+                topology="hier", device="cuda", runs=2)
+    t0 = time.perf_counter()
+    outs = bootstrap.launch_local_cluster(WORKER, spec, n_processes=n_proc,
+                                          miners_per_process=per, timeout=300,
+                                          all_processes=True)
+    cluster_wall = time.perf_counter() - t0
+    expand = (16 * per, ds_a.bucket.items, ds_a.bucket.words)
+    for out in outs:
+        pid = out["process_id"]
+        steps = sum(p["supersteps"] for p in out["phases"])
+        shapes = {tuple(k): n for k, n in out["launch_shapes"]}
+        launched.update(shapes)
+        launches[f"8b process {pid}"] = sum(shapes.values())
+        bad = []
+        if out["results_sha256"] != sha_a:
+            bad.append("results_sha256")
+        if [p["supersteps"] for p in out["phases"]] != want["supersteps"]:
+            bad.append("supersteps")
+        if [stats_digest(p["stats"]) for p in out["phases"]] != want["stats_sha256"]:
+            bad.append("stats")
+        if shapes.get(expand, 0) <= 0:
+            bad.append(f"no launch at {expand}")
+        if bad:
+            raise AssertionError(f"(8b) process {pid}: {bad}")
+        coll = out["collectives"]
+        print(f"  (8b) process {pid} of {n_proc} ({out['miners_here']} of "
+              f"{out['n_miners']} miners): walls {[round(w, 3) for w in out['walls']]} s "
+              f"(cold, warm); supersteps "
+              f"{'+'.join(str(p['supersteps']) for p in out['phases'])}; kernel "
+              f"launches {sum(shapes.values())} {shapes}, {shapes[expand]} at {expand}; "
+              f"collectives {coll['calls']} in {coll['seconds']:.3f} s "
+              f"({1e3 * coll['seconds'] / steps:.3f} ms per superstep); "
+              f"= 8a {n_proc}x{per} and flat (a)'s sha", flush=True)
+    print(f"  (8b) cluster of {n_proc} processes on one card: {cluster_wall:.1f} s "
+          "from launch to the last answer (process start, torch import, "
+          "dataset, cold and warm query)", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1247,10 +1402,18 @@ def main() -> int:
     p7_launches = phase7(datasets["cuda"], sessions["kernel"][0], rep_a, launched)
     done("7", t0)
 
-    # ---- 3b. the kernel at every shape phases 4-7 launched, not yet checked
+    # ---- 8. topology
+    t0 = time.perf_counter()
+    print("[8] topology, query (a): forced 2x4 and 4x2 on one process, then a "
+          f"gloo cluster of {CLUSTER[0]} processes x {CLUSTER[1]} miners on the card",
+          flush=True)
+    p8_launches = phase8(datasets["cuda"], rep_a, launched)
+    done("8", t0)
+
+    # ---- 3b. the kernel at every shape phases 4-8 launched, not yet checked
     t0 = time.perf_counter()
     new = sorted(launched - checked)
-    print(f"[3b] kernel vs plain version at the {len(new)} shapes phases 4-7 "
+    print(f"[3b] kernel vs plain version at the {len(new)} shapes phases 4-8 "
           f"launched that phase 3 did not check: {new}", flush=True)
     rows += check_kernel_in_child(new)
     done("3b", t0)
@@ -1286,6 +1449,9 @@ def main() -> int:
         # launches of each phase 7 run (streamed query, fleet drains summed
         # over their workers, retry, partial and its resume)
         "serve_launches": p7_launches,
+        # launches of each phase 8 run (8a's warm forced shapes, each 8b
+        # process's warm query)
+        "phase8_launches": p8_launches,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

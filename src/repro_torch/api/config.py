@@ -68,7 +68,11 @@ class RuntimeConfig:
     #: k > 0 runs segments of k supersteps, enabling frontier
     #: checkpoint/resume and cooperative soft deadlines
     ckpt_period: int = 0
-    topology: object | None = None  # multi-host topology: not ported yet
+    #: machine shape (repro_torch.topo): None = the flat lifeline
+    #: schedule; a Topology selects the hierarchical two-level one.
+    #: Hashable, so it lands in the resolved EngineConfig and the program
+    #: cache key: flat and hierarchical programs never collide.
+    topology: object | None = None
     stack_mem_mb: int = 256        # per-miner stack memory ceiling (resolve())
     # session-level knob (never part of the resolved EngineConfig): programs
     # a MinerSession retains before LRU eviction

@@ -35,8 +35,14 @@ deadline with a partial report (DESIGN.md §11).  `run(stream=...)`
 delivers the final top-k head to a callback while the rest of the result
 is still being reconstructed (the serving layer's top-k-first delivery).
 
-Not ported yet (ROADMAP.md queue 1): multi-host topologies (`topology`,
-item 10); asking for one raises NotImplementedError.
+`RuntimeConfig.topology` (a `repro_torch.topo.Topology` of n_miners
+miners) runs the hierarchical two-level lifeline schedule instead of the
+flat one.  Inside a `torch.distributed` group of several processes
+(`repro_torch.topo.bootstrap.init_distributed`) `n_miners` counts the
+*global* miners, as the JAX session's device count does: each process
+runs its contiguous block of them, and every process returns the same
+report (DESIGN.md §12).  Segmented passes (`ckpt_period > 0`) are refused
+there, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from typing import Callable
 
 import numpy as np
 
+from repro_torch.core.collectives import process_group
 from repro_torch.core.engine import (
     VALID_MODES,
     EngineConfig,
@@ -58,11 +65,11 @@ from repro_torch.core.engine import (
     _check_ported,
     build_mine_step,
     make_program_args,
+    make_schedule,
     postprocess_phase,
     run_segments,
     segments_raw_output,
 )
-from repro_torch.core.lifeline import build_schedule
 from repro_torch.device import resolve_device
 from repro_torch.obs import MetricsRegistry, SpanTracer
 from repro_torch.stats import get_statistic
@@ -156,9 +163,13 @@ class MinerSession:
         self.algorithm = algorithm or AlgorithmConfig()
         self.runtime = runtime or RuntimeConfig()
         r = self.runtime
-        # the engine's refusal of unported options, raised before any query
-        _check_ported(EngineConfig(topology=r.topology,
-                                   kernel_blocks=r.kernel_blocks))
+        # the engine's refusals of unported options and of a topology of
+        # another miner count, raised before any query
+        _check_ported(EngineConfig(kernel_blocks=r.kernel_blocks))
+        make_schedule(EngineConfig(topology=r.topology), self.n_miners)
+        #: this process's block of the miners in a multi-process group,
+        #: None in a single process
+        self.group = process_group(self.n_miners)
         self.tracer = tracer or SpanTracer()
         self.metrics = metrics or MetricsRegistry()
         m = self.metrics
@@ -197,7 +208,7 @@ class MinerSession:
             )
         # insertion/use-ordered: front = least recently used (LRU eviction)
         self._programs: OrderedDict[tuple, _Program] = OrderedDict()
-        self._schedules: dict[tuple[int, int], object] = {}
+        self._schedules: dict[tuple, object] = {}
         self._hits = 0
         self._misses = 0
         self._evictions = 0
@@ -225,11 +236,9 @@ class MinerSession:
 
     # -------------------------------------------------------------- programs
     def _schedule(self, cfg: EngineConfig):
-        key = (cfg.n_random_perms, cfg.seed)
+        key = (cfg.n_random_perms, cfg.seed, cfg.topology)
         if key not in self._schedules:
-            self._schedules[key] = build_schedule(
-                self.n_miners, cfg.n_random_perms, cfg.seed
-            )
+            self._schedules[key] = make_schedule(cfg, self.n_miners)
         return self._schedules[key]
 
     def _resolve(self, bucket: ShapeBucket) -> EngineConfig:
@@ -258,6 +267,8 @@ class MinerSession:
                 n=bucket.transactions, n_pos=bucket.positives, m=bucket.items,
                 cfg=cfg, stack_cap=cfg.stack_cap, schedule=self._schedule(cfg),
                 mode=mode, device=self.device, statistic=statistic,
+                # run_phase refuses a segmented pass across processes
+                group=self.group if cfg.ckpt_period == 0 else None,
             )
         compile_s = time.perf_counter() - t0
         self._m_compile.observe(compile_s)
@@ -418,6 +429,19 @@ class MinerSession:
                     alpha=alpha, min_sup=min_sup, delta=delta,
                     statistic=statistic,
                 )
+            if self.group is not None:
+                # every process dealt the same global roots; keep this
+                # process's rows (repro_torch.topo.bootstrap)
+                from repro_torch.topo import bootstrap
+
+                if cfg.ckpt_period > 0:
+                    raise NotImplementedError(
+                        "segmented (ckpt_period > 0) passes are not yet "
+                        "supported under a multi-process mesh: the per-"
+                        "segment host round-trip of the carry needs "
+                        "allgather plumbing"
+                    )
+                args = bootstrap.local_args(args, self.group)
             # the statistic gates only the emission of "test"/"count2d";
             # lamp1/count programs are statistic-free, shared under None
             stat_key = statistic if mode in ("test", "count2d") else None
@@ -430,6 +454,10 @@ class MinerSession:
                     )
                 else:
                     raw = entry.compiled(*args)
+                if self.group is not None:
+                    # every process gathers the same full outputs, so
+                    # postprocess (and the ResultSet) is identical everywhere
+                    raw = bootstrap.fetch_outputs(raw, self.group)
             with self.tracer.span("postprocess"):
                 out = postprocess_phase(
                     raw, packed=dataset.packed, n_proc=self.n_miners, cfg=cfg,

@@ -37,8 +37,14 @@ Modes:
   count2d static min_sup (+delta=alpha)       -> 2-D (sup x pos-sup) histogram
                                                  + alpha-level pattern records
 
-Not ported yet (ROADMAP.md queue 1, item 10): multi-host topologies; a
-config asking for one raises NotImplementedError.
+Topology (DESIGN.md §12): `cfg.topology` (a `repro_torch.topo.Topology`)
+swaps the flat lifeline schedule for the hierarchical two-level one over
+the same P miners (`make_schedule`).  STEAL reads only the schedule's
+global rounds, so a forced H x D shape needs no collectives.  A
+`torch.distributed` cluster splits the miner dim over its processes:
+`build_mine_step(group=...)` with a `core.collectives.MinerGroup` runs this
+process's miners and all-gathers the census, the crossing steal payloads
+and the outputs (see `repro_torch.topo.bootstrap`).
 """
 
 from __future__ import annotations
@@ -107,7 +113,10 @@ class EngineConfig:
     #: boundaries the frontier can be checkpointed and a cooperative stop
     #: polled.  Part of the session's program cache key.
     ckpt_period: int = 0
-    topology: object | None = None  # multi-host topology: not ported yet
+    #: machine shape (repro_torch.topo): None = the flat schedule; a
+    #: Topology selects the hierarchical two-level schedule.  Hashable, so
+    #: it lands in the program cache key.
+    topology: object | None = None
 
 
 #: the BSP carry's leaf names, in carry-tuple order — the JAX package's
@@ -122,13 +131,25 @@ CARRY_FIELDS = (
 
 
 def _check_ported(cfg: EngineConfig) -> None:
-    if cfg.topology is not None:
-        raise NotImplementedError(
-            "topology: multi-host meshes are not ported yet (ROADMAP.md "
-            "queue 1, item 10: multi-process topology)"
-        )
     if cfg.kernel_blocks is not None:
         raise ValueError("kernel_blocks: the CUDA kernel's tile is fixed; pass None")
+
+
+def make_schedule(cfg: EngineConfig, n_proc: int) -> LifelineSchedule:
+    """The lifeline schedule cfg.topology selects for P = n_proc global
+    miners (the schedule half of the JAX `make_mesh_and_schedule`): flat
+    without a topology, else the hierarchical two-level one, whose P must
+    be n_proc exactly."""
+    if cfg.topology is None:
+        return build_schedule(n_proc, cfg.n_random_perms, cfg.seed)
+    from repro_torch.topo.hierarchy import build_hierarchical_schedule
+
+    if cfg.topology.n_proc != n_proc:
+        raise ValueError(
+            f"topology {cfg.topology} needs {cfg.topology.n_proc} devices, "
+            f"got {n_proc}"
+        )
+    return build_hierarchical_schedule(cfg.topology, cfg.n_random_perms, cfg.seed)
 
 
 def resolve_stack_cap(cfg: EngineConfig, m_pad: int, w_pad: int, n_proc: int,
@@ -477,7 +498,7 @@ def _thr_tensor(thr, device) -> torch.Tensor:
 def build_mine_step(
     *, n: int, n_pos: int, m: int, cfg: EngineConfig, stack_cap: int,
     schedule: LifelineSchedule, mode: str, device,
-    statistic: str | None = "fisher",
+    statistic: str | None = "fisher", group=None,
 ):
     """Wire the superstep phases into the BSP program for P miners.
 
@@ -489,6 +510,13 @@ def build_mine_step(
     `seg(carry, db_tiles, pos_mask, thr, delta, n_act, npos_act, t_stop)`,
     which advances a `_Carry` in place to superstep t_stop (or until the
     frontier drains) and returns it.
+
+    `group` (a `core.collectives.MinerGroup`, classic program only) runs
+    this process's block of the schedule's P miners: the program then
+    takes that block's rows of the dealt roots (`topo.bootstrap.
+    local_args`) and returns its own rows and sums, which
+    `topo.bootstrap.fetch_outputs` gathers.  The loop reads the global
+    census, so every process runs the same supersteps.
     """
     _check_ported(cfg)
     if cfg.trace_period < 0:
@@ -504,13 +532,21 @@ def build_mine_step(
     NB2 = (n + 1) * (n_pos + 1) if mode == "count2d" else 1
     SNB = NB if mode == "lamp1" else 1
     n_proc = schedule.n_proc
+    if group is not None and (cfg.ckpt_period > 0 or group.n_miners != n_proc):
+        raise ValueError(
+            "a multi-process group runs the classic program over the "
+            "schedule's P miners"
+        )
+    n_rows = n_proc if group is None else group.n_local  # carry rows here
     period, tcap = cfg.trace_period, cfg.trace_cap
     kernel_impl = resolve_impl(cfg.kernel_impl, device)
     expand = build_expand(n=n, n_pos=n_pos, m=m, cfg=cfg, stack_cap=stack_cap,
                           mode=mode, kernel_impl=kernel_impl, statistic=statistic)
-    steal_round = build_steal_round(schedule, cfg, stack_cap=stack_cap, device=device)
-    global_sync = build_global_sync(mode=mode, sync_period=cfg.sync_period)
-    no_steal = torch.zeros(n_proc, dtype=torch.int64, device=device)
+    steal_round = build_steal_round(schedule, cfg, stack_cap=stack_cap, device=device,
+                                    group=group)
+    global_sync = build_global_sync(mode=mode, sync_period=cfg.sync_period,
+                                    group=group)
+    no_steal = torch.zeros(n_rows, dtype=torch.int64, device=device)
 
     def record(st, t, stats_before, n_hungry, sig_cnt, k_given, k_recv):
         # written *before* global_sync, so LAMBDA is the value in force
@@ -518,11 +554,11 @@ def build_mine_step(
         deltas = st.stats - stats_before
         fired = (n_hungry > 0) & bool(cfg.steal_enabled)
         rec = torch.stack([
-            torch.full((n_proc,), t, dtype=torch.int64, device=device),  # STEP
-            st.lam.expand(n_proc),                    # LAMBDA
+            torch.full((n_rows,), t, dtype=torch.int64, device=device),  # STEP
+            st.lam.expand(n_rows),                    # LAMBDA
             st.sp,                                    # DEPTH
-            n_hungry.expand(n_proc),                  # HUNGRY
-            fired.long().expand(n_proc),              # FIRED
+            n_hungry.expand(n_rows),                  # HUNGRY
+            fired.long().expand(n_rows),              # FIRED
             deltas[:, Stat.POPPED],                   # POPPED
             deltas[:, Stat.PUSHED],                   # PUSHED
             deltas[:, Stat.CLOSED],                   # CLOSED
@@ -548,10 +584,15 @@ def build_mine_step(
             # the hunger census: REQUEST side of the steal exchange and the
             # exact termination test (steals only redistribute work)
             hungry_vec = hunger_census(st.sp)
+            if group is not None:  # every process reads the global census
+                (hungry_vec,) = group.all_gather(hungry_vec)
+                n_hungry_host = int(hungry_vec.sum())
             n_hungry = hungry_vec.sum()
             k_given = k_recv = no_steal
             if cfg.steal_enabled:
-                got, gave, k_given, k_recv = steal_round(t, hungry_vec, st)
+                got, gave, k_given, k_recv = steal_round(
+                    t, hungry_vec, st,
+                    any_hungry=group is None or n_hungry_host > 0)
                 st.stats[:, Stat.STEALS_GOT] += got
                 st.stats[:, Stat.GIVES] += gave
                 st.stats[:, Stat.STOLEN_NODES] += k_given
@@ -561,7 +602,7 @@ def build_mine_step(
             if sampled:
                 record(st, t, stats_before, n_hungry, sig_cnt, k_given, k_recv)
             global_sync(t, st, thr_t)
-            st.work = n_proc - int(n_hungry)
+            st.work = n_proc - (int(n_hungry) if group is None else n_hungry_host)
             st.t = t + 1
         return st
 
@@ -570,6 +611,8 @@ def build_mine_step(
         st = _Carry(init_occ=init_occ, init_meta=init_meta, init_sp=init_sp,
                     lam0=lam0, nb=NB, snb=SNB, nb2=NB2, out_cap=cfg.out_cap,
                     trace_cap=tcap, device=device)
+        if group is not None:  # the census over every process's miners
+            st.work = group.sum_int(st.work)
         delta_t = torch.tensor(delta, dtype=torch.float32, device=device)
         run_to(st, cfg.max_steps, db_tiles, pos_mask, _thr_tensor(thr, device),
                delta_t, n_act, npos_act)
@@ -937,7 +980,7 @@ def mine(
         packed = pack_problem(db_bool, labels, device=resolve_device(device))
     elif device is not None and resolve_device(device) != packed.device:
         raise ValueError(f"packed lives on {packed.device}, not on {device}")
-    schedule = build_schedule(n_miners, cfg.n_random_perms, cfg.seed)
+    schedule = make_schedule(cfg, n_miners)
     cfg = replace(cfg, stack_cap=resolve_stack_cap(cfg, packed.m_pad, packed.w_pad,
                                                    n_miners))
     args, ctx = make_program_args(

@@ -46,16 +46,21 @@ def recompute_lambda(g_hist, thr, lam):
     return np.maximum(np.maximum(lam, best + 1), 1)
 
 
-def build_global_sync(*, mode: str, sync_period: int = 1):
+def build_global_sync(*, mode: str, sync_period: int = 1, group=None):
     """Returns global_sync(t, st, thr), updating st.lam, st.g_hist_acc and
-    st.hist_snap in place; the identity for modes other than "lamp1"."""
+    st.hist_snap in place; the identity for modes other than "lamp1".
+    With a `group` (core.collectives.MinerGroup) the dim-0 sum of this
+    process's miners is all-reduced over the processes."""
     if sync_period < 1:
         raise ValueError(f"sync_period must be >= 1, got {sync_period}")
 
     def global_sync(t: int, st, thr):
         if mode != "lamp1" or (t + 1) % sync_period != 0:
             return
-        st.g_hist_acc = st.g_hist_acc + (st.hist - st.hist_snap).sum(dim=0)
+        delta = (st.hist - st.hist_snap).sum(dim=0)
+        if group is not None:
+            delta = group.all_reduce_sum(delta)
+        st.g_hist_acc = st.g_hist_acc + delta
         st.lam = recompute_lambda(st.g_hist_acc, thr, st.lam)
         st.hist_snap = st.hist.clone()
 

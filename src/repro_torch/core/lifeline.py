@@ -36,7 +36,7 @@ class LifelineSchedule:
     # table and any single-axis mesh consume
     rounds: tuple
     names: tuple  # debug labels, e.g. ("rand0", "hc0", "rand1", "hc1", ...)
-    # -------- two-level (topology-factorized) extension (not ported yet) --
+    # -------- two-level (topology-factorized) extension; repro_torch.topo -
     # A hierarchical schedule additionally factorizes every round onto ONE
     # mesh axis of the [hosts, local] topo mesh: `round_axes[r]` names that
     # axis and `axis_rounds[r]` holds the same (request, reply) pairs in

@@ -16,6 +16,15 @@ collectives become indexing:
 The JAX version gates the exchange on "anyone hungry"; here it runs every
 superstep, since with nobody hungry every k is 0 and the payload is all
 zeros, which leaves the stacks as they were.
+
+Across processes (a `core.collectives.MinerGroup`) the round splits in
+three: what this process's miners donate (local), the exchange, and what
+they receive (local).  A round whose reply pairs all stay inside each
+process gathers from the local payload; a round with a pair that crosses
+processes all-gathers every process's payload first, unless the global
+census says nobody is hungry (then every k is 0 and there is nothing to
+move).  Without a group the tables are the global ones and no round
+crosses, so the single-process round runs the ops it always did.
 """
 
 from __future__ import annotations
@@ -29,12 +38,17 @@ from .lifeline import LifelineSchedule
 __all__ = ["build_steal_round"]
 
 
-def build_steal_round(schedule: LifelineSchedule, cfg, *, stack_cap: int, device):
-    """Returns steal_round(t, hungry_vec, st) -> (got, gave, k_given, k_recv).
+def build_steal_round(schedule: LifelineSchedule, cfg, *, stack_cap: int, device,
+                      group=None):
+    """Returns steal_round(t, hungry_vec, st, any_hungry=True) -> (got, gave,
+    k_given, k_recv).
 
-    `hungry_vec` [P] is the superstep's hunger census (1 per empty miner);
-    `st` is the engine carry, whose occ_stack, meta, sp and head the round
-    updates in place.  The returned counters are [P] tensors.
+    `hungry_vec` [P] is the superstep's global hunger census (1 per empty
+    miner); `st` is the engine carry of this process's miners, whose
+    occ_stack, meta, sp and head the round updates in place.  The returned
+    counters are [P_local] tensors.  `group` (a MinerGroup) splits the
+    miners over processes; `any_hungry` (host bool, read only with a
+    group) lets a crossing round skip its exchange when nobody is hungry.
     """
     T = cfg.steal_max
     cap = stack_cap
@@ -42,6 +56,8 @@ def build_steal_round(schedule: LifelineSchedule, cfg, *, stack_cap: int, device
         raise ValueError(f"stack_cap={cap} must cover one full steal payload ({T})")
     P = schedule.n_proc
     R = schedule.n_rounds
+    lo, hi = (0, P) if group is None else (group.lo, group.hi)
+    PL = hi - lo
     # req_src[r, i]: the miner whose request reaches victim i in round r;
     # rep_src[r, d]: the miner whose reply reaches d; -1 when there is none
     req_src = np.full((R, P), -1, np.int64)
@@ -51,12 +67,21 @@ def build_steal_round(schedule: LifelineSchedule, cfg, *, stack_cap: int, device
             req_src[r, d] = s
         for s, d in rep_pairs:
             rep_src[r, d] = s
+    # a round crosses when some miner of ANY process gets its reply from
+    # another process: then every process joins the exchange
+    owner = np.arange(P) // PL
+    crosses = np.any((rep_src >= 0) & (owner[np.maximum(rep_src, 0)] != owner),
+                     axis=1).tolist()
+    req_src, rep_src = req_src[:, lo:hi], rep_src[:, lo:hi]
+    # the repliers in local rows (-1 for one in another process)
+    rep_local = np.where((rep_src >= lo) & (rep_src < hi), rep_src - lo, -1)
     req_src = torch.from_numpy(req_src).to(device)
-    rep_src = torch.from_numpy(rep_src).to(device)
+    rep_local = torch.from_numpy(rep_local).to(device)
+    rep_global = torch.from_numpy(rep_src).to(device) if any(crosses) else None
     rows = torch.arange(T, device=device)
-    pidx = torch.arange(P, device=device)[:, None]
+    pidx = torch.arange(PL, device=device)[:, None]
 
-    def steal_round(t: int, hungry_vec, st):
+    def steal_round(t: int, hungry_vec, st, any_hungry: bool = True):
         r = t % R
         # REQUEST, read out of the census
         requester = req_src[r]
@@ -72,10 +97,14 @@ def build_steal_round(schedule: LifelineSchedule, cfg, *, stack_cap: int, device
         st.head = advance_head(st.head, k, cap)
         st.sp = st.sp - k
         # GIVE/REJECT: gather each receiver's payload from its replier
-        replier = rep_src[r]
+        if crosses[r] and any_hungry:
+            k_all, pay_occ, pay_meta = group.all_gather(k, pay_occ, pay_meta)
+            replier, n_src = rep_global[r], P
+        else:
+            k_all, replier, n_src = k, rep_local[r], PL
         has = replier >= 0
-        rsrc = torch.clamp(replier, 0, P - 1)
-        recv_k = torch.where(has, k[rsrc], 0)
+        rsrc = torch.clamp(replier, 0, n_src - 1)
+        recv_k = torch.where(has, k_all[rsrc], 0)
         got = recv_k > 0  # only ever true for requesters (they had sp == 0)
         # a receiver is empty, so its bottom is pinned to physical row 0 and
         # the payload lands in rows [0, T)

@@ -33,8 +33,11 @@ segment boundary, and --resume restores the newest valid one (written by
 this launcher or the JAX one; elastic: the frontier is re-dealt onto
 --devices miners).
 
-Multi-host shapes (--hosts/--devices-per-host) are not ported yet; those
-flags exit with an error naming their ROADMAP.md item.
+--hosts H --devices-per-host D simulates an H x D machine in one process
+(repro_torch.topo): H*D virtual miners under the hierarchical two-level
+lifeline schedule.  The results equal the flat run's; the supersteps,
+steals and per-round steal telemetry are the JAX launcher's at the same
+flags.
 """
 
 from __future__ import annotations
@@ -44,13 +47,6 @@ import json
 import math
 import sys
 import time
-
-#: flags of features the port does not have yet -> their ROADMAP.md item
-_UNPORTED = (
-    (("hosts", "devices_per_host"), "--hosts/--devices-per-host",
-     "queue 1, item 10: multi-process topology"),
-)
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -73,9 +69,12 @@ def main(argv=None):
                     help="virtual miners on the one device (0 = one)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to run (cuda refuses without a card)")
-    ap.add_argument("--hosts", type=int, default=0, help="not ported yet")
+    ap.add_argument("--hosts", type=int, default=0,
+                    help="simulate a hosts x devices-per-host machine "
+                         "(repro_torch.topo): hierarchical two-level "
+                         "lifeline schedule, single process")
     ap.add_argument("--devices-per-host", type=int, default=0,
-                    help="not ported yet")
+                    help="miners per simulated host (with --hosts)")
     ap.add_argument("--no-steal", action="store_true")
     ap.add_argument("--expand-batch", type=int, default=16)
     ap.add_argument("--steal-max", type=int, default=128)
@@ -120,9 +119,6 @@ def main(argv=None):
                          "re-dealt onto the current miner count)")
     args = ap.parse_args(argv)
 
-    for dests, flags, item in _UNPORTED:
-        if any(getattr(args, d) for d in dests):
-            ap.error(f"{flags}: not ported yet (ROADMAP.md {item})")
     if (args.ckpt_dir or args.resume) and args.ckpt_period < 1:
         ap.error("--ckpt-dir/--resume need --ckpt-period N (N >= 1): "
                  "checkpoints are cut at segment boundaries of the "
@@ -130,6 +126,18 @@ def main(argv=None):
     if args.query == "closed-frequent" and args.min_sup < 1:
         ap.error("--query closed-frequent needs --min-sup N (N >= 1): the "
                  "objective is every closed itemset with support >= N")
+
+    topology = None
+    if args.hosts or args.devices_per_host:
+        if args.hosts < 1 or args.devices_per_host < 1:
+            ap.error("--hosts and --devices-per-host go together (both >= 1)")
+        from repro_torch.topo import Topology
+
+        topology = Topology(args.hosts, args.devices_per_host)
+        if args.devices and args.devices != topology.n_proc:
+            ap.error(f"--devices {args.devices} contradicts --hosts x "
+                     f"--devices-per-host = {topology.n_proc}")
+        args.devices = topology.n_proc
 
     from repro_torch.api import (
         PIPELINES,
@@ -175,6 +183,7 @@ def main(argv=None):
             trace_period=args.trace_period,
             trace_cap=args.trace_cap,
             ckpt_period=args.ckpt_period,
+            topology=topology,
             # stack_cap=None: sized by RuntimeConfig.resolve for the
             # dataset's bucket and the miner count
             stack_cap=args.stack_cap or None,

@@ -38,6 +38,7 @@ from repro.data.synthetic import SyntheticSpec, generate  # noqa: E402
 from repro_torch.core.bitmap import pack_db  # noqa: E402
 from repro_torch.core.engine import EngineConfig  # noqa: E402
 from repro_torch.stats import get_statistic  # noqa: E402
+from repro_torch.topo import Topology  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -460,26 +461,32 @@ def test_validation_errors_match_jax(name, shared_sessions):
     "trace_period", "ckpt_period", "topology", "kernel_blocks", "stream",
     "ckpt_dir", "resume_from", "device_mismatch"])
 def test_unported_options_raise(case):
-    """Topologies (item 10) still raise, naming their item; the trace ring,
-    the segmented program and streaming are ported (items 7, 8 and 9: the
-    session runs them), and ckpt_dir/resume_from without ckpt_period are
-    refused as the JAX session refuses them."""
+    """The trace ring, the segmented program, streaming and topologies are
+    ported (items 7-10: the session runs them; a topology of another miner
+    count is refused with the JAX package's error), and
+    ckpt_dir/resume_from without ckpt_period are refused as the JAX
+    session refuses them."""
     db, labels = small_problem(0)
     _, td = datasets(db, labels)
     q = tapi.SignificantPatternQuery()
     runtime = dict(trace_period=dict(trace_period=1),
                    ckpt_period=dict(ckpt_period=4),
-                   topology=dict(topology=object()),
+                   topology=dict(topology=Topology(1, 1)),
                    kernel_blocks=dict(kernel_blocks=(8, 512, 32))).get(case)
-    if case in ("trace_period", "ckpt_period"):
+    if case in ("trace_period", "ckpt_period", "topology"):
         rep = tapi.MinerSession(device="cpu", runtime=tapi.RuntimeConfig(**runtime)).run(
             td, q)
         assert all((p.trace is not None) == (case == "trace_period") for p in rep.phases)
         assert rep.results.complete and not rep.partial
+        if case == "topology":
+            flat = tapi.MinerSession(device="cpu").run(td, q)
+            assert rep.results.to_json() == flat.results.to_json()
+            with pytest.raises(ValueError, match="topology 2x4 needs 8 devices, got 1"):
+                tapi.MinerSession(device="cpu", runtime=tapi.RuntimeConfig(
+                    topology=Topology(2, 4)))
         return
     if runtime is not None:
-        exc, match = ((ValueError, "kernel_blocks") if case == "kernel_blocks"
-                      else (NotImplementedError, "ROADMAP.md queue 1, item 10"))
+        exc, match = (ValueError, "kernel_blocks")
         with pytest.raises(exc, match=match):
             tapi.MinerSession(device="cpu", runtime=tapi.RuntimeConfig(**runtime))
         if case == "kernel_blocks":

@@ -127,15 +127,16 @@ def test_traced_checkpointed_blob_matches_jax_and_resumes_its_ckpt(
 
 
 @pytest.mark.parametrize("flags, match", [
-    (["--hosts", "2", "--devices-per-host", "2"], "ROADMAP.md queue 1, item 10"),
-    (["--hosts", "2"], "ROADMAP.md queue 1, item 10"),
-    (["--devices-per-host", "2"], "ROADMAP.md queue 1, item 10"),
+    (["--hosts", "2", "--devices-per-host", "2", "--devices", "3"], "contradicts"),
+    (["--hosts", "2"], "go together"),
+    (["--devices-per-host", "2"], "go together"),
     (["--ckpt-dir", "ck"], "need --ckpt-period"),
     (["--resume", "ck"], "need --ckpt-period"),
 ])
 def test_unported_flags_exit_naming_their_item(flags, match, capsys):
-    """Only the topology flags are left unported; the checkpoint flags
-    exit as the JAX launcher's do without --ckpt-period."""
+    """No flag is left unported: the topology flags exit as the JAX
+    launcher's do when they are half given or contradict --devices, and
+    the checkpoint flags without --ckpt-period."""
     with pytest.raises(SystemExit) as exc:
         tmine.main(PROBLEM + ["--device", "cpu"] + flags)
     assert exc.value.code == 2

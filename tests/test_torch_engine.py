@@ -146,12 +146,19 @@ def test_pack_and_deal_match_jax():
 
 
 def test_unported_options_raise():
-    """Only multi-host topologies are left unported (the trace ring and the
-    segmented program are tests/test_torch_{trace,fault_tolerance}.py's)."""
+    """Nothing is left unported (the trace ring and the segmented program
+    are tests/test_torch_{trace,fault_tolerance}.py's, topologies
+    tests/test_torch_topo.py's): a topology of another miner count and a
+    Pallas block triple are refused as the JAX engine refuses them."""
+    from repro_torch.topo import Topology
+
     db, labels = small_problem(0)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+    with pytest.raises(ValueError, match="topology 2x4 needs 8 devices, got 1"):
         teng.mine(db, labels, mode="count", min_sup=3,
-                  cfg=teng.EngineConfig(topology=object()), device="cpu")
+                  cfg=teng.EngineConfig(topology=Topology(2, 4)), device="cpu")
+    with pytest.raises(ValueError, match="kernel_blocks"):
+        teng.mine(db, labels, mode="count", min_sup=3,
+                  cfg=teng.EngineConfig(kernel_blocks=(8, 512, 32)), device="cpu")
 
 
 # ------------------------------------------------------------------ P = 8

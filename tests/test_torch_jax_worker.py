@@ -8,12 +8,13 @@ holds no tests.
 
     python tests/test_torch_jax_worker.py '<json spec>'   -> one JSON line
 
-The spec names a dataset, a RuntimeConfig and a query, and optionally a
-checkpoint directory to write (`ckpt_dir`), one to resume from
+The spec names a dataset, a RuntimeConfig (its `topology` as
+[n_hosts, devices_per_host]) and a query, and optionally a checkpoint
+directory to write (`ckpt_dir`), one to resume from
 (`resume_from`), an injected kill after N segments (`die_after_segments`)
 and a soft stop after N polls (`stop_after`).  The answer holds the
-report's values, the ResultSet's JSON export, every phase's decoded trace
-and the SHA-256 of every frontier step written (`frontier_digest`).
+report's values, the ResultSet's JSON export, every phase's per-miner
+stats, steal telemetry and decoded trace, and the SHA-256 of every frontier step written (`frontier_digest`).
 """
 
 import json
@@ -52,8 +53,12 @@ def main(spec: dict) -> dict:
     query = {"significant": api.SignificantPatternQuery,
              "closed-frequent": api.ClosedFrequentQuery,
              "topk": api.TopKSignificantQuery}[kind](**q)
-    session = api.MinerSession(jax.devices(),
-                               runtime=api.RuntimeConfig(**spec.get("runtime", {})))
+    runtime = dict(spec.get("runtime", {}))
+    if runtime.get("topology") is not None:
+        from repro.topo import Topology
+
+        runtime["topology"] = Topology(*runtime["topology"])
+    session = api.MinerSession(jax.devices(), runtime=api.RuntimeConfig(**runtime))
     polls = {"n": 0}
 
     def should_stop():
@@ -81,6 +86,10 @@ def main(spec: dict) -> dict:
             phases=[dict(mode=p.mode, supersteps=p.supersteps,
                          resumed=p.resumed, ckpt_writes=p.ckpt_writes,
                          ckpt_bytes=p.ckpt_bytes, trace_dropped=p.trace_dropped,
+                         stats={k: np.asarray(v).tolist()
+                                for k, v in p.output.stats.items()},
+                         steal_by_round=p.steal_by_round,
+                         tier_fairness=p.tier_fairness,
                          trace=None if p.trace is None else {
                              f: np.asarray(getattr(p.trace, f)).tolist()
                              for f in TRACE_ARRAYS})
