@@ -64,8 +64,9 @@ run on any error (each prints its wall time):
 and, after them, the kernel against the plain version at every shape
 phases 4-8 launched that phase 3 did not check (3b).
 
-The second-to-last line is a JSON object with the kernel's numbers; the
-last is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+The second-to-last line is a JSON object with the kernel's numbers (its
+tile instantiations and phase 9b's per-tile times among them); the last is
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -172,6 +173,22 @@ TRACE_ARRAYS = ("steps", "lam", "n_hungry", "fired", "depth", "popped",
 SERVE_REQUESTS = 16
 SERVE_ALPHAS = (0.05, 0.01)
 SERVE_FLEETS = (1, 2, 4)
+#: the kernel's template instantiations, (block_m, block_w)
+INSTANTIATIONS = [(32, 32), (32, 64), (64, 32), (64, 64), (128, 32), (128, 64)]
+#: phase 9a: every candidate tile against the plain version at each shape
+#: of this cross product (W = 65 and 96 run the chunked plan under both
+#: block_w)
+TILE_B = (1, 17, 111, 512, 1024)
+TILE_M = (1191, 2048, 11914, 11916, 253952)
+TILE_W = (12, 22, 32, 65, 96)
+#: phase 9b: the main path's shapes, every candidate timed: EXPAND at
+#: 1,191 items (P = 8, and 4 per process of 8b), a reconstruction chunk,
+#: EXPAND at both full widths, alz_rec_30's reconstruction
+TILE_SHAPES = ((128, 2048, 32), (64, 2048, 32), (512, 2048, 32),
+               (128, 16384, 32), (128, 262144, 16), (295, 262144, 16))
+#: phase 9c: query (a) with this tile pinned (the default at its EXPAND
+#: shape, (128, 2048, 32), is (16, 64, 32))
+PINNED_TILE = (32, 128, 32)
 #: the idle share's profile: (s after a pass starts, s of window).  The
 #: pass serves requests 1..size, one per worker, each longer than the
 #: window's end even alone (request 1 is the longest of the 16)
@@ -1047,6 +1064,7 @@ def phase8(ds_a, rep_a, launched: set) -> dict:
     `launched` (3b checks them).  Returns {run: kernel launches}.
     """
     from repro_torch.api import MinerSession, RuntimeConfig
+    from repro_torch.kernels.support_count import autotune
     from repro_torch.topo import Topology, bootstrap
     from repro_torch.topo.worker import WORKER
 
@@ -1113,6 +1131,9 @@ def phase8(ds_a, rep_a, launched: set) -> dict:
     spec = dict(dataset={"paper": "hapmap_dom_20", "scale_items": 0.1},
                 query=dict(zip(("pipeline", "statistic"), QUERY_EXPECT["a"][0])),
                 topology="hier", device="cuda", runs=2)
+    card, sms = autotune.card_info()
+    tile = autotune.choose_blocks(16 * per, ds_a.bucket.items, ds_a.bucket.words,
+                                  card=card, sms=sms)
     t0 = time.perf_counter()
     outs = bootstrap.launch_local_cluster(WORKER, spec, n_processes=n_proc,
                                           miners_per_process=per, timeout=300,
@@ -1134,6 +1155,12 @@ def phase8(ds_a, rep_a, launched: set) -> dict:
             bad.append("stats")
         if shapes.get(expand, 0) <= 0:
             bad.append(f"no launch at {expand}")
+        # every rank chooses the tile this process chooses at each shape
+        tiles = {(*k[:3], tuple(k[3])): n for k, n in out["launch_tiles"]}
+        bad += [f"tile {k}" for k in tiles
+                if k[3] != autotune.choose_blocks(*k[:3], card=card, sms=sms)]
+        if any(tuple(p["kernel_blocks"]) != tile for p in out["phases"]):
+            bad.append(f"phases' kernel_blocks {[p['kernel_blocks'] for p in out['phases']]}")
         if bad:
             raise AssertionError(f"(8b) process {pid}: {bad}")
         coll = out["collectives"]
@@ -1141,7 +1168,8 @@ def phase8(ds_a, rep_a, launched: set) -> dict:
               f"{out['n_miners']} miners): walls {[round(w, 3) for w in out['walls']]} s "
               f"(cold, warm); supersteps "
               f"{'+'.join(str(p['supersteps']) for p in out['phases'])}; kernel "
-              f"launches {sum(shapes.values())} {shapes}, {shapes[expand]} at {expand}; "
+              f"launches {sum(shapes.values())} {shapes}, {shapes[expand]} at {expand} "
+              f"with tile {tile}; "
               f"collectives {coll['calls']} in {coll['seconds']:.3f} s "
               f"({1e3 * coll['seconds'] / steps:.3f} ms per superstep); "
               f"= 8a {n_proc}x{per} and flat (a)'s sha", flush=True)
@@ -1149,6 +1177,193 @@ def phase8(ds_a, rep_a, launched: set) -> dict:
           "from launch to the last answer (process start, torch import, "
           "dataset, cold and warm query)", flush=True)
     return launches
+
+
+def phase9a() -> dict:
+    """Phase 9a: every candidate tile of every TILE_B x TILE_M x TILE_W
+    shape against the plain version, bit for bit.  Returns {"shapes",
+    "launches", "mismatched"}; a mismatch fails the run."""
+    import torch
+
+    from repro_torch.kernels.support_count import autotune, kernel
+    from repro_torch.kernels.support_count.ref import support_count_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    n_shapes = n_launch = 0
+    bad = []
+    for w in TILE_W:
+        for m in TILE_M:
+            db = torch.randint(-2**31, 2**31, (m, w), dtype=torch.int32,
+                               device="cuda", generator=gen)
+            db[m // 2] = -1
+            for b in TILE_B:
+                occ = torch.randint(-2**31, 2**31, (b, w), dtype=torch.int32,
+                                    device="cuda", generator=gen)
+                occ[0] = -1
+                want = support_count_ref(occ, db)
+                for tile in autotune.candidate_blocks(b, m, w):
+                    got = kernel.support_count_cuda(occ, db, blocks=tile)
+                    n_launch += 1
+                    if not torch.equal(got, want):
+                        bad.append(((b, m, w), tile))
+                    del got
+                n_shapes += 1
+                del want
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"(9a) kernel != plain version at {bad[:10]} "
+                             f"({len(bad)} of {n_launch})")
+    return dict(shapes=n_shapes, launches=n_launch, mismatched=len(bad))
+
+
+def measure_tiles(shapes) -> list[dict]:
+    """Phase 9b, in a child process: `measure_blocks` with the profiler's
+    device time at each shape, beside the chosen tile, the bound and the
+    library call's device time.  Rows of the seed table go to
+    build/chip_smoke/autotune_seed.json (not loaded)."""
+    import torch
+
+    from repro_torch.kernels.support_count import autotune
+
+    out, table = [], []
+    card, sms = autotune.card_info()
+    for b, m, w in shapes:
+        rows = autotune.measure_blocks(b, m, w, device_time=True)
+        table += rows
+        chosen = list(autotune.choose_blocks(b, m, w, card=card, sms=sms))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        occ = torch.randint(-2**31, 2**31, (b, w), dtype=torch.int32,
+                            device="cuda", generator=gen)
+        db = torch.randint(-2**31, 2**31, (m, w), dtype=torch.int32,
+                           device="cuda", generator=gen)
+        lib, _, lib_name = _library(occ, db)
+        library_ms = _device_ms(lib)
+        del lib, occ, db
+        bound_ms, bound_by = _bound(b, m, w)
+        mine = next(r for r in rows if r["blocks"] == chosen)
+        best = rows[0]
+        print(f"  (9b) {b:>4} x {m:>6} x {w:>3}: chosen {tuple(chosen)} "
+              f"{_us(mine['device_us'])} us (events {mine['time_us']:.2f}); best "
+              f"{tuple(best['blocks'])} {_us(best['device_us'])} us; bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by}); library {lib_name} "
+              f"{_us(None if library_ms is None else library_ms * 1e3)} us", flush=True)
+        for r in rows:
+            print(f"        {str(tuple(r['blocks'])):>15}  device {_us(r['device_us'])} us"
+                  f"  events {r['time_us']:8.2f} us  modeled {r['modeled_us']:8.3f} us"
+                  f"  smem {r['smem_kib']:6.1f} KiB"
+                  + ("  <- chosen" if r["blocks"] == chosen else ""), flush=True)
+        out.append(dict(shape=[b, m, w], chosen=chosen, chosen_us=mine["device_us"],
+                        best=best["blocks"], best_us=best["device_us"],
+                        bound_us=bound_ms * 1e3, bound_by=bound_by,
+                        library_us=None if library_ms is None else library_ms * 1e3,
+                        library=lib_name,
+                        tiles=[[r["blocks"], r["device_us"], r["time_us"],
+                                r["modeled_us"]] for r in rows]))
+    path = ROOT / "build" / "chip_smoke" / "autotune_seed.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    autotune.save_seed_table(str(path), table)
+    print(f"  (9b) seed table of {len(table)} rows: {path.relative_to(ROOT)}", flush=True)
+    return out
+
+
+def _us(x) -> str:
+    return "n.m." if x is None else f"{x:.3f}"
+
+
+def measure_tiles_in_child(shapes) -> list[dict]:
+    """`measure_tiles(shapes)` in a fresh process of this script (the
+    profiler late in a run drops launches; see check_kernel_in_child)."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--measure-tiles",
+         json.dumps([list(s) for s in shapes])],
+        capture_output=True, text=True, timeout=600,
+    )
+    lines = proc.stdout.rstrip("\n").splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"9b child failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def phase9(ds_a, rep_a, tiles_a: dict, acts_per_step, launched: set) -> dict:
+    """Phase 9: the kernel's tile (9a-9d, see the module doc).  `ds_a` is
+    phase 4's 1,191-item Dataset on the card, `rep_a` the main path's
+    report of query (a) and `tiles_a` its launches by (B, M, W, tile);
+    `acts_per_step` phase 4's device activities per superstep.  Returns
+    {"9a": ..., "9b": rows, "9c launches": n, "9d": ...}."""
+    from repro_torch.api import MinerSession, RuntimeConfig
+    from repro_torch.kernels.support_count import autotune, kernel
+    from repro_torch.launch.op_cost import count_costs
+
+    out = {}
+    card, sms = autotune.card_info()
+    expand = (16 * 8, ds_a.bucket.items, ds_a.bucket.words)
+    sha_a = QUERY_EXPECT["a"][1]["results_sha256"]
+
+    t0 = time.perf_counter()
+    out["9a"] = phase9a()
+    print(f"  (9a) every candidate tile == plain version at {out['9a']['shapes']} "
+          f"shapes (B {TILE_B} x M {TILE_M} x W {TILE_W}), {out['9a']['launches']} "
+          f"launches: mismatches 0; {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    out["9b"] = measure_tiles_in_child(TILE_SHAPES)
+    print(f"  (9b) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 9c: query (a) with a non-default tile pinned
+    t0 = time.perf_counter()
+    if autotune.choose_blocks(*expand, card=card, sms=sms) == PINNED_TILE:
+        raise AssertionError(f"(9c) {PINNED_TILE} is the default at {expand}")
+    pinned = MinerSession(8, runtime=RuntimeConfig(kernel_blocks=PINNED_TILE))
+    rep, wall, n_launch, shapes = _counted(lambda: pinned.run(ds_a, make_query("a")))
+    tiles = dict(kernel.launch_tiles)
+    launched.update(shapes)
+    out["9c launches"] = n_launch
+    bad = [f"{k}: {n}" for k, n in tiles.items()
+           if k[3] != (PINNED_TILE if k[:3] == expand
+                       else autotune.choose_blocks(*k[:3], card=card, sms=sms))]
+    if (results_sha256(rep.results) != sha_a or bad or tiles.get((*expand, PINNED_TILE), 0) <= 0
+            or any(p.kernel_blocks != PINNED_TILE for p in rep.phases)):
+        raise AssertionError(f"(9c) pinned {PINNED_TILE}: sha "
+                             f"{results_sha256(rep.results)}, tiles {tiles}, phases "
+                             f"{[p.kernel_blocks for p in rep.phases]}")
+    print(f"  (9c) query (a) with kernel_blocks={PINNED_TILE}: {wall:.3f} s (cold), "
+          f"= (a)'s sha; launches {n_launch} by (B, M, W, tile) {tiles}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 9d: the main path's tiles, and op_cost on the card
+    t0 = time.perf_counter()
+    chosen = autotune.choose_blocks(*expand, card=card, sms=sms)
+    bad = [f"{k}: {n}" for k, n in tiles_a.items()
+           if k[3] != autotune.choose_blocks(*k[:3], card=card, sms=sms)]
+    if any(p.kernel_blocks != chosen for p in rep_a.phases) or bad:
+        raise AssertionError(f"(9d) (a)'s phases {[p.kernel_blocks for p in rep_a.phases]}, "
+                             f"chosen {chosen}; launches off their chosen tile: {bad}")
+    session = MinerSession(8)
+    session.run(ds_a, make_query("a"))                 # build the programs
+    reps = []
+    kernel.reset_counts()
+    costs = count_costs(lambda: reps.append(session.run(ds_a, make_query("a"))))
+    steps = sum(p.supersteps for p in reps[0].phases)
+    if results_sha256(reps[0].results) != sha_a or kernel.launches != sum(tiles_a.values()):
+        raise AssertionError(f"(9d) under op_cost: sha {results_sha256(reps[0].results)}, "
+                             f"launches {kernel.launches}")
+    sc = costs["by_op"].get("support_count", {})
+    out["9d"] = dict(chosen=list(chosen), launches=sum(tiles_a.values()),
+                     aten_ops=costs["ops"], supersteps=steps,
+                     aten_ops_per_step=costs["ops"] / steps,
+                     support_count_items=sc.get("count", 0),
+                     bytes=costs["bytes"], bit_ops=costs["bit_ops"])
+    acts = "not measured" if acts_per_step is None else f"{acts_per_step:.1f}"
+    print(f"  (9d) query (a): phases' kernel_blocks {[p.kernel_blocks for p in rep_a.phases]}"
+          f" = choose_blocks{expand} = {chosen}; its {sum(tiles_a.values())} launches by "
+          f"(B, M, W, tile) {tiles_a}; under op_cost (same sha, same launches): "
+          f"{costs['ops']} aten ops over {steps} supersteps = "
+          f"{costs['ops'] / steps:.1f} per superstep (phase 4: {acts} device "
+          f"activities per superstep), {sc.get('count', 0)} support-count items, "
+          f"{costs['bytes'] / 2**20:.1f} MiB, {costs['bit_ops']:.4g} bit operations; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1197,8 +1412,17 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
     log = kernel.build_log().strip()
     print(log, flush=True)
-    if log and "0 bytes spill stores, 0 bytes spill loads" not in log:
-        raise AssertionError("the kernel spills registers (see ptxas above)")
+    spills = [ln.strip() for ln in log.splitlines() if "bytes spill stores" in ln]
+    if not log:
+        print("[2] the library was built before this process: no ptxas report here",
+              flush=True)
+    elif len(spills) != len(INSTANTIATIONS) or any(
+            "0 bytes spill stores, 0 bytes spill loads" not in ln for ln in spills):
+        raise AssertionError(f"{len(spills)} ptxas reports for {len(INSTANTIATIONS)} "
+                             "instantiations, or one spills registers (see above)")
+    else:
+        print(f"[2] {len(spills)} instantiations (block_m, block_w) {INSTANTIATIONS}: "
+              "0 bytes spilled in each", flush=True)
     done("2", t0)
 
     # ---- 3. kernel vs plain version, on the card
@@ -1279,6 +1503,7 @@ def main() -> int:
     # (a): cold, then warm — the warm run is the main path
     rep_cold, wall_cold, _, _, built = run("a", "kernel", "a cold")
     rep_a, wall_a, main_launches, shapes_a, built_warm = run("a", "kernel", "a warm")
+    tiles_a = dict(kernel.launch_tiles)
     if built_warm:
         raise AssertionError(f"the warm query (a) built {built_warm} programs")
     if main_launches <= 0:
@@ -1322,6 +1547,8 @@ def main() -> int:
         raise AssertionError(f"(a) profiled run differs in {bad}")
     _profile_line("(a)", dev, wall_a, wall_p,
                   steps=sum(p.supersteps for p in rep_a.phases))
+    acts_per_step = (sum(n for n, _ in dev.values())
+                     / sum(p.supersteps for p in rep_a.phases)) if dev else None
     if dev:
         for k, (n, us) in sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]:
             print(f"    {us / 1e3:9.3f} ms  {n:6d} x  {k[:100]}", flush=True)
@@ -1410,10 +1637,18 @@ def main() -> int:
     p8_launches = phase8(datasets["cuda"], rep_a, launched)
     done("8", t0)
 
-    # ---- 3b. the kernel at every shape phases 4-8 launched, not yet checked
+    # ---- 9. the kernel's tile
+    t0 = time.perf_counter()
+    print("[9] the kernel's tile: (a) every candidate vs the plain version, (b) "
+          "every candidate timed at the main path's shapes, (c) query (a) with "
+          f"{PINNED_TILE} pinned, (d) (a)'s tiles and op_cost", flush=True)
+    p9 = phase9(datasets["cuda"], rep_a, tiles_a, acts_per_step, launched)
+    done("9", t0)
+
+    # ---- 3b. the kernel at every shape phases 4-9 launched, not yet checked
     t0 = time.perf_counter()
     new = sorted(launched - checked)
-    print(f"[3b] kernel vs plain version at the {len(new)} shapes phases 4-8 "
+    print(f"[3b] kernel vs plain version at the {len(new)} shapes phases 4-9 "
           f"launched that phase 3 did not check: {new}", flush=True)
     rows += check_kernel_in_child(new)
     done("3b", t0)
@@ -1452,6 +1687,12 @@ def main() -> int:
         # launches of each phase 8 run (8a's warm forced shapes, each 8b
         # process's warm query)
         "phase8_launches": p8_launches,
+        # the tile: template instantiations (block_m, block_w), the main
+        # path's tiles by (B, M, W, tile), 9a's check, 9b's per-tile device
+        # times (us), 9c's pinned run, 9d's op_cost count
+        "instantiations": INSTANTIATIONS,
+        "tiles": [[*k[:3], list(k[3]), n] for k, n in sorted(tiles_a.items())],
+        "phase9": p9,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1462,5 +1703,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--check-shapes"]:   # 3b's child (check_kernel_in_child)
         shapes = [tuple(x) for x in json.loads(sys.argv[2])]
         print(json.dumps(check_kernel(shapes, profiled=len(shapes))))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--measure-tiles"]:  # 9b's child (measure_tiles_in_child)
+        shapes = [tuple(x) for x in json.loads(sys.argv[2])]
+        print(json.dumps(measure_tiles(shapes)))
         sys.exit(0)
     sys.exit(main())

@@ -12,8 +12,11 @@ half of the cache key.
 stack as the JAX package does — by items per miner, clamped by stack
 memory (`stack_mem_mb`), which scales with the word width W — and resolves
 `kernel_impl="auto"` against the session's device (`cuda` on the card,
-`ref` on the CPU), so the resolved `EngineConfig` is concrete.  Resolution
-uses bucket dims, not exact dims, so same-bucket datasets share programs.
+`ref` on the CPU) and `kernel_blocks=None` to the autotuner's tile for the
+superstep's support count (`kernels/support_count/autotune.py`), so the
+resolved `EngineConfig`, and with it the program cache key, is concrete.
+Resolution uses bucket dims, not exact dims, so same-bucket datasets share
+programs.
 `trace_period` and `ckpt_period` pass through into the resolved config, so
 traced, segmented and classic sessions never share a program.
 """
@@ -23,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass, fields, replace
 
 from repro_torch.core.engine import EngineConfig, resolve_stack_cap
+from repro_torch.kernels.support_count import autotune
 from repro_torch.kernels.support_count.ops import resolve_impl
 from repro_torch.obs.trace import DEFAULT_TRACE_CAP
 
@@ -56,8 +60,10 @@ class RuntimeConfig:
     steal_enabled: bool = True
     kernel_impl: str = "auto"      # "auto" (cuda on the card, ref on the
     #                                CPU) | "ref" | "cuda"
-    #: the JAX Pallas kernel's block triple; the CUDA kernel sizes its own
-    #: grid, so this must stay None
+    #: the CUDA kernel's (block_b, block_m, block_w) tile (occ rows per
+    #: block, items per ring tile, K words per unit; autotune.py); None =
+    #: let the autotuner choose for the superstep's exact launch shape at
+    #: resolve time — the resolved tile joins the program cache key
     kernel_blocks: tuple[int, int, int] | None = None
     #: superstep trace sampling period (DESIGN.md §9): 0 = tracing off;
     #: k > 0 records one TraceField row every k-th superstep
@@ -86,8 +92,15 @@ class RuntimeConfig:
     def with_options(self, **kw) -> "RuntimeConfig":
         return replace(self, **kw)
 
-    def resolve(self, bucket: ShapeBucket, n_miners: int, device) -> EngineConfig:
+    def resolve(self, bucket: ShapeBucket, n_miners: int, device,
+                n_local: int | None = None) -> EngineConfig:
         """Concrete EngineConfig for one shape bucket on `device`.
+
+        kernel_blocks: an explicit tile must be a candidate of the
+        superstep's launch, (n_local * expand_batch, bucket items, bucket
+        words), `n_local` being this process's miners (default all
+        `n_miners`); None becomes `autotune.choose_blocks` there when the
+        kernel runs (`cuda`) and stays None for the plain version.
 
         stack_cap default (`core.engine.resolve_stack_cap`): 2 nodes per
         depth-1 root dealt to this miner, floored at 8192, then clamped so
@@ -96,10 +109,15 @@ class RuntimeConfig:
         below what one superstep can produce (push_cap + steal_max +
         expand_batch).
         """
-        if self.kernel_blocks is not None:
-            raise ValueError(
-                "kernel_blocks: the CUDA kernel sizes its own grid; pass None"
-            )
+        impl = resolve_impl(self.kernel_impl, device)
+        launch = ((n_miners if n_local is None else n_local) * self.expand_batch,
+                  bucket.items, bucket.words)
+        blocks = self.kernel_blocks
+        if blocks is not None:
+            blocks = autotune.check_blocks(blocks, *launch)
+        elif impl == "cuda":
+            card, sms = autotune.card_info(device)
+            blocks = autotune.choose_blocks(*launch, impl, card=card, sms=sms)
         cfg = EngineConfig(
             expand_batch=self.expand_batch,
             stack_cap=self.stack_cap,
@@ -110,10 +128,11 @@ class RuntimeConfig:
             n_random_perms=self.n_random_perms,
             seed=self.seed,
             steal_enabled=self.steal_enabled,
-            # "auto" resolves here, per device, so the resolved config (and
-            # with it the session's program cache key) is concrete
-            kernel_impl=resolve_impl(self.kernel_impl, device),
-            kernel_blocks=None,
+            # "auto" impl and None blocks resolve here, per device and
+            # bucket, so the resolved config (and with it the session's
+            # program cache key) is concrete
+            kernel_impl=impl,
+            kernel_blocks=blocks,
             trace_period=self.trace_period,
             # tracing on with no explicit ring size: supply the default cap
             trace_cap=(

@@ -38,7 +38,9 @@ class PhaseReport:
     # kernel provenance — the *resolved* support-count dispatch this pass
     # ran with:
     kernel_impl: str = "ref"   # "ref" | "cuda" (never "auto")
-    kernel_blocks: "tuple[int, int, int] | None" = None  # always None here
+    #: the CUDA kernel's (block_b, block_m, block_w) tile of the superstep's
+    #: support count; None for the plain version
+    kernel_blocks: "tuple[int, int, int] | None" = None
     item_tile: int = 0         # tile width of the db layout (0 = untiled)
     n_item_tiles: int = 1      # tiles per support-count sweep
     # decoded device superstep timeline (DESIGN.md §9); present iff the

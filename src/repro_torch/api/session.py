@@ -62,7 +62,6 @@ from repro_torch.core.engine import (
     VALID_MODES,
     EngineConfig,
     MineOutput,
-    _check_ported,
     build_mine_step,
     make_program_args,
     make_schedule,
@@ -163,9 +162,8 @@ class MinerSession:
         self.algorithm = algorithm or AlgorithmConfig()
         self.runtime = runtime or RuntimeConfig()
         r = self.runtime
-        # the engine's refusals of unported options and of a topology of
-        # another miner count, raised before any query
-        _check_ported(EngineConfig(kernel_blocks=r.kernel_blocks))
+        # the engine's refusal of a topology of another miner count, raised
+        # before any query
         make_schedule(EngineConfig(topology=r.topology), self.n_miners)
         #: this process's block of the miners in a multi-process group,
         #: None in a single process
@@ -242,7 +240,8 @@ class MinerSession:
         return self._schedules[key]
 
     def _resolve(self, bucket: ShapeBucket) -> EngineConfig:
-        return self.runtime.resolve(bucket, self.n_miners, self.device)
+        n_local = self.group.n_local if self.group is not None else None
+        return self.runtime.resolve(bucket, self.n_miners, self.device, n_local)
 
     def _program(self, mode: str, bucket: ShapeBucket, cfg: EngineConfig,
                  statistic: str | None):

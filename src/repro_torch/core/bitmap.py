@@ -37,6 +37,7 @@ __all__ = [
     "unpack_occ",
     "full_occ",
     "popcount_np",
+    "support_np",
     "supports_np",
     "words_to_tensor",
     "tensor_to_words",
@@ -173,6 +174,11 @@ def full_occ(n_transactions: int) -> np.ndarray:
 # ------------------------------------------------------------------ numpy path
 def popcount_np(x: np.ndarray) -> np.ndarray:
     return np.bitwise_count(x)
+
+
+def support_np(occ: np.ndarray) -> np.ndarray:
+    """[..., W] -> [...] int32 popcount sum."""
+    return popcount_np(occ).sum(axis=-1).astype(np.int32)
 
 
 def supports_np(occ: np.ndarray, db_bits: np.ndarray) -> np.ndarray:

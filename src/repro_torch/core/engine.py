@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.support_count import autotune
 from repro_torch.kernels.support_count.ops import resolve_impl
 from repro_torch.obs.trace import N_FIELDS, SuperstepTrace, decode_trace
 from repro_torch.stats import get_statistic
@@ -100,7 +101,9 @@ class EngineConfig:
     seed: int = 0
     steal_enabled: bool = True     # False = the paper's "naive approach" (§5.4)
     kernel_impl: str = "auto"      # "auto" | ops.VALID_IMPLS ("ref", "cuda")
-    #: the JAX Pallas kernel's block triple; the CUDA kernel's is fixed
+    #: the CUDA kernel's (block_b, block_m, block_w) tile for the
+    #: superstep's support count; None = autotune.choose_blocks at the
+    #: launch's shape (ignored by the plain version)
     kernel_blocks: tuple[int, int, int] | None = None
     #: superstep trace sampling period: 0 = off; k > 0 records one
     #: [N_FIELDS] int32 record per miner every k-th superstep into a
@@ -128,11 +131,6 @@ CARRY_FIELDS = (
     "hist2d", "lam", "t", "stats", "out_occ", "out_meta", "out_ptr",
     "n_sig", "trace", "work",
 )
-
-
-def _check_ported(cfg: EngineConfig) -> None:
-    if cfg.kernel_blocks is not None:
-        raise ValueError("kernel_blocks: the CUDA kernel's tile is fixed; pass None")
 
 
 def make_schedule(cfg: EngineConfig, n_proc: int) -> LifelineSchedule:
@@ -518,7 +516,6 @@ def build_mine_step(
     `topo.bootstrap.fetch_outputs` gathers.  The loop reads the global
     census, so every process runs the same supersteps.
     """
-    _check_ported(cfg)
     if cfg.trace_period < 0:
         raise ValueError(f"trace_period must be >= 0, got {cfg.trace_period}")
     if cfg.trace_period and cfg.trace_cap <= 0:
@@ -538,6 +535,9 @@ def build_mine_step(
             "schedule's P miners"
         )
     n_rows = n_proc if group is None else group.n_local  # carry rows here
+    if cfg.kernel_blocks is not None:   # a tile of the superstep's launch
+        autotune.check_blocks(cfg.kernel_blocks, n_rows * cfg.expand_batch, m,
+                              num_words(n))
     period, tcap = cfg.trace_period, cfg.trace_cap
     kernel_impl = resolve_impl(cfg.kernel_impl, device)
     expand = build_expand(n=n, n_pos=n_pos, m=m, cfg=cfg, stack_cap=stack_cap,
@@ -968,7 +968,6 @@ def mine(
         raise ValueError(
             f"unknown engine mode {mode!r}; valid modes: {', '.join(VALID_MODES)}"
         )
-    _check_ported(cfg)
     if (ckpt_dir or resume_from or should_stop is not None) and cfg.ckpt_period <= 0:
         raise ValueError(
             "ckpt_dir/resume_from/should_stop need the segmented program: "

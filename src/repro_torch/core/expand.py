@@ -51,6 +51,7 @@ def build_expand(*, n: int, n_pos: int, m: int, cfg, stack_cap: int,
     """
     B, CAP, C = cfg.expand_batch, stack_cap, cfg.push_cap
     OUT = cfg.out_cap
+    kernel_blocks = cfg.kernel_blocks
     NB = n + 2
     hist2d_mode = mode == "count2d"
     emitting = mode in ("test", "count2d")
@@ -76,7 +77,8 @@ def build_expand(*, n: int, n_pos: int, m: int, cfg, stack_cap: int,
         alive = row_valid & (sup >= st.lam)
         w = occ_nodes.shape[-1]
         supports = support_counts_tiled(
-            occ_nodes.reshape(P * B, w), db_tiles, impl=kernel_impl
+            occ_nodes.reshape(P * B, w), db_tiles, impl=kernel_impl,
+            blocks=kernel_blocks,
         ).view(P, B, m)
         item_ids = torch.arange(m, device=dev)
         in_clo = supports == sup[..., None]

@@ -1,6 +1,6 @@
 """Quickstart: significant pattern mining (LAMP) on a small synthetic GWAS
-matrix through the session API, held against the sequential oracle's
-answer.  The port's counterpart of the JAX package's `examples/quickstart.py`.
+matrix — the sequential oracle vs the session API's BSP engine.  The
+port's counterpart of the JAX package's `examples/quickstart.py`.
 
   PYTHONPATH=src python -m repro_torch.examples.quickstart \
       [--miners 1] [--device cpu] [--smoke]
@@ -10,43 +10,19 @@ the device, a `MinerSession` whose programs are cached, first-class
 `Query` objects executed via `session.run(...)` (a typed `MineReport`
 each), and a second (warm) query that reuses every program.
 
-The sequential oracle (the JAX package's host LCM+LAMP, `repro.core.lamp`)
-is not ported, so this example carries its answer on the demo matrix as
-constants (`ORACLE`), which tests/test_torch_examples.py re-derives from
-the oracle.  It runs on the card by default; --device cpu runs it on the
-CPU; --smoke skips the warm repeat query.
+The sequential oracle is the host LCM+LAMP of `repro_torch.core.lamp`.
+The engine runs on the card by default; --device cpu runs it on the CPU;
+--smoke skips the warm repeat query.
 """
 
 from __future__ import annotations
 
 import argparse
-import hashlib
-import json
 
 #: the demo matrix (the JAX example's)
 DEMO = dict(name="demo", n_items=120, n_transactions=300, density=0.06,
             n_pos=100, n_planted=2, planted_pos_rate=0.7,
             planted_neg_rate=0.03, seed=1)
-
-#: the sequential oracle's answer on DEMO at alpha = 0.05: the LAMP values,
-#: its first five significant itemsets (items, support, pos_support,
-#: P-value), and the first 16 hex digits of the SHA-256 of all of them as
-#: JSON, sorted [[items...], support, pos_support] (`pattern_digest`)
-ORACLE = dict(lambda_final=10, min_sup=9, correction_factor=478,
-              delta=0.00010460251046025105, n_significant=147,
-              top=(((14, 69, 75, 88), 81, 73, 2.1091292202471404e-37),
-                   ((69, 88), 83, 74, 2.3430458079770976e-37),
-                   ((11,), 86, 75, 1.637430615225502e-36),
-                   ((14, 88), 82, 73, 1.6881147383522794e-36),
-                   ((11, 78, 84), 79, 71, 1.0259644982107697e-35)),
-              patterns_sha256="eda75bc49973bed3")
-
-
-def pattern_digest(patterns) -> str:
-    """`patterns`: (items, support, pos_support) triples, any order."""
-    rows = sorted((sorted(int(i) for i in items), int(s), int(ps))
-                  for items, s, ps in patterns)
-    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()[:16]
 
 
 def main(argv=None):
@@ -63,6 +39,7 @@ def main(argv=None):
         RuntimeConfig,
         SignificantPatternQuery,
     )
+    from repro_torch.core.lamp import lamp
     from repro_torch.data.synthetic import SyntheticSpec, generate
     from repro_torch.results import score_planted
 
@@ -71,14 +48,14 @@ def main(argv=None):
     print(f"dataset: {spec.n_items} items x {spec.n_transactions} transactions, "
           f"{spec.n_pos} positives; planted itemsets: {planted}")
 
-    # --- the sequential reference's answer (constants, see ORACLE)
-    ref = ORACLE
-    print(f"\n[sequential] lambda={ref['lambda_final']} min_sup={ref['min_sup']} "
-          f"closed@min_sup={ref['correction_factor']} delta={ref['delta']:.2e} "
-          f"significant={ref['n_significant']}")
-    for items, support, pos, pvalue in ref["top"]:
-        print(f"   items={sorted(items)} support={support} "
-              f"pos={pos} p={pvalue:.3e}")
+    # --- sequential reference (host numpy LCM+LAMP)
+    ref = lamp(db, labels, alpha=0.05)
+    print(f"\n[sequential] lambda={ref.lambda_final} min_sup={ref.min_sup} "
+          f"closed@min_sup={ref.correction_factor} delta={ref.delta:.2e} "
+          f"significant={len(ref.significant)}")
+    for s in ref.significant[:5]:
+        print(f"   items={sorted(s.items)} support={s.support} "
+              f"pos={s.pos_support} p={s.pvalue:.3e}")
 
     # --- the BSP engine behind the session API (--miners virtual miners)
     session = MinerSession(args.miners, device=args.device,
@@ -104,12 +81,13 @@ def main(argv=None):
     print(f"planted itemsets recovered: {len(score['recovered'])}/"
           f"{score['n_planted']} (recall {score['recall']:.2f})")
 
-    assert report.min_sup == ref["min_sup"]
-    assert report.correction_factor == ref["correction_factor"]
-    assert report.n_significant == ref["n_significant"]
-    got = pattern_digest((p.items, p.support, p.pos_support) for p in rs)
-    assert got == ref["patterns_sha256"], \
-        "engine pattern identities must match the oracle"
+    assert report.min_sup == ref.min_sup
+    assert report.correction_factor == ref.correction_factor
+    assert report.n_significant == len(ref.significant)
+    got = {(p.items, p.support, p.pos_support) for p in rs}
+    want = {(tuple(sorted(s.items)), s.support, s.pos_support)
+            for s in ref.significant if s.items}
+    assert got == want, "engine pattern identities must match the oracle"
     print("\nengine patterns match the sequential oracle — OK")
     if args.smoke:
         return 0

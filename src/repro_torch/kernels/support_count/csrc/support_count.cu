@@ -26,24 +26,28 @@
 //
 // What the design does about it.
 //  * Every word is counted by the binary tensor cores, none by __popc.  A
-//    warp owns 16 occ rows (the row-major A operand) and sweeps 8 fragments
-//    of 8 items (the item-major database is already the column-major B
-//    operand).  W is padded to a multiple of 8 words in shared memory only:
+//    warp owns 16 occ rows (the row-major A operand) and sweeps block_m / 8
+//    fragments of 8 items (the item-major database is already the
+//    column-major B operand).  W is padded to a multiple of 8 words in shared memory only:
 //    occ's pad words are zero, so whatever the database holds there counts
 //    nothing.
+//  * The tile is the caller's (block_b, block_m, block_w) triple, chosen
+//    per shape by kernels/support_count/autotune.py: block_b occ rows per
+//    block (16 per warp, 1-8 warps, a runtime value), block_m items per
+//    ring tile and block_w words of K per unit, both template parameters
+//    (6 instantiations: block_m in {32, 64, 128} x block_w in {32, 64}).
 //  * The database is read once per row block, streamed through a ring of
-//    kStages tiles of kTileItems items by 16-byte cp.async: a tile is one
-//    contiguous run of kTileItems * W words, copied flat (a 2-D TMA map
+//    kStages tiles of block_m items by 16-byte cp.async: a tile is one
+//    contiguous run of block_m * W words, copied flat (a 2-D TMA map
 //    would need a 16-byte row stride, and W = 22 gives 88 bytes), so the
 //    next tiles' copies overlap this tile's MMAs.  The wrapper checks that
 //    occ, db and S are 16-byte aligned.
-//  * occ stays resident: a block copies its <= 128 rows once, by 4-byte
-//    cp.async in the first commit group, and walks many item tiles, one of
-//    a persistent grid no larger than the resident slots the occupancy API
-//    reports.  When the tiles would not give every SM two blocks, the rows
-//    are split across more, narrower blocks.  Above kFlatMaxW words both
-//    operands are staged per (tile, K chunk of kChunkW words) instead, by
-//    4-byte cp.async.
+//  * occ stays resident while W <= block_w: a block copies its block_b
+//    rows once, by 4-byte cp.async in the first commit group, and walks
+//    many item tiles, one of a persistent grid no larger than the resident
+//    slots the occupancy API reports.  Above block_w words both operands
+//    are staged per (tile, K chunk of block_w words) instead, by 4-byte
+//    cp.async.
 //  * S is written once: each warp passes its accumulators through shared
 //    memory and stores whole rows of its tile along j, 16 bytes a lane
 //    when M % 4 == 0 (every row then starts 16-byte aligned), else 4 bytes
@@ -56,44 +60,40 @@
 
 namespace {
 
-constexpr int kTileItems = 64;                // items per tile
-constexpr int kFrags = kTileItems / 8;        // n8 fragments per tile
 constexpr int kMaxWarps = 8;                  // 16 occ rows per warp
 constexpr int kStages = 3;                    // depth of the database ring
-constexpr int kFlatMaxW = 64;                 // widest W with occ resident
-constexpr int kChunkW = 32;                   // K chunk above kFlatMaxW
-constexpr int kOutLd = kTileItems + 8;        // s_out row stride, words
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// Shared-memory plan, the same on host and device.  Row strides are
-// 4 mod 8 words, so the A-fragment loads (8 rows x 4 words) hit 32 banks.
+// Shared-memory plan, the same on host and device (autotune.py::smem_bytes
+// transcribes it).  Row strides are 4 mod 8 words, so the A-fragment loads
+// (8 rows x 4 words) hit 32 banks.
 struct Plan {
-  bool flat;       // W <= kFlatMaxW: occ resident, database tiles flat
-  int kw;          // words of K per unit: W rounded to 8, or kChunkW
+  bool flat;       // W <= block_w: occ resident, database tiles flat
+  int kw;          // words of K per unit: W rounded to 8, or block_w
   int ld_occ;      // word stride of an occ row in shared memory
   int ld_db;       // word stride of a database item in shared memory
   int occ_words;   // flat: the resident occ; chunked: occ part of a stage
   int stage_words; // one ring slot
   int out_words;   // accumulator staging, all warps
 
-  __host__ __device__ Plan(int W, int warps) {
+  __host__ __device__ Plan(int W, int warps, int items, int block_w) {
     const int rows = warps * 16;
-    flat = W <= kFlatMaxW;
-    kw = flat ? round_up(W, 8) : kChunkW;
+    flat = W <= block_w;
+    kw = flat ? round_up(W, 8) : block_w;
     ld_occ = kw + 4;
     occ_words = rows * ld_occ;
     if (flat) {
       // the last item's padded k-step reads up to 7 words past the tile
       ld_db = W;
-      stage_words = round_up(kTileItems * W + 8, 4);
+      stage_words = round_up(items * W + 8, 4);
     } else {
-      ld_db = kChunkW + 4;
-      stage_words = occ_words + kTileItems * ld_db;
+      ld_db = block_w + 4;
+      stage_words = occ_words + items * ld_db;
     }
-    out_words = warps * 16 * kOutLd;
+    out_words = warps * 16 * (items + 8);
   }
   __host__ __device__ int words() const {
     return (flat ? occ_words : 0) + kStages * stage_words + out_words;
@@ -140,20 +140,26 @@ __device__ __forceinline__ void mma_and_popc(int (&c)[4], uint32_t a0,
 
 // grid (row blocks, item-tile groups); block = warps x 32 threads, each
 // warp 16 rows.  Block (x, y) owns rows [x * rows, +rows) and item tiles
-// y, y + gridDim.y, ...; a unit is one (tile, K chunk) pair.
+// y, y + gridDim.y, ...; a unit is one (tile, K chunk) pair.  kItems items
+// per tile, kBlockW words of K per unit (or W, when W <= kBlockW).
+template <int kItems, int kBlockW>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 support_count_kernel(const uint32_t* __restrict__ occ,
                      const uint32_t* __restrict__ db,
                      int32_t* __restrict__ out, int B, int M, int W) {
+  constexpr int kFrags = kItems / 8;          // n8 fragments per tile
+  constexpr int kOutLd = kItems + 8;          // s_out row stride, words
+  constexpr int kVecRow = kItems / 4;         // 16-byte vectors per S row
+  constexpr int kRowsPass = 32 / kVecRow;     // S rows a warp stores a pass
   extern __shared__ __align__(16) uint32_t smem[];
   const int warps = blockDim.x >> 5;
-  const Plan p(W, warps);
+  const Plan p(W, warps, kItems, kBlockW);
   const int rows = warps * 16;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * rows;
-  const int ntiles = (M + kTileItems - 1) / kTileItems;
-  const int nchunks = p.flat ? 1 : (W + kChunkW - 1) / kChunkW;
+  const int ntiles = (M + kItems - 1) / kItems;
+  const int nchunks = p.flat ? 1 : (W + kBlockW - 1) / kBlockW;
   const int gy = blockIdx.y, ny = gridDim.y;
   const int units = ((ntiles - 1 - gy) / ny + 1) * nchunks;  // gy < ntiles
 
@@ -166,18 +172,18 @@ support_count_kernel(const uint32_t* __restrict__ occ,
 
   auto issue = [&](int u) {
     uint32_t* st = s_ring + (u % kStages) * p.stage_words;
-    const int j0 = tile_of(u) * kTileItems;
-    const int items = min(kTileItems, M - j0);
+    const int j0 = tile_of(u) * kItems;
+    const int items = min(kItems, M - j0);
     if (p.flat) {
       const uint32_t* src = db + static_cast<size_t>(j0) * W;
       const int words = items * W;
       for (int i = tid * 4; i < words; i += blockDim.x * 4)
         cp_async16(st + i, src + i, min(16, (words - i) * 4));
     } else {
-      const int k0 = (u % nchunks) * kChunkW;
-      const int kc = min(kChunkW, W - k0);
-      for (int i = tid; i < (rows + kTileItems) * kChunkW; i += blockDim.x) {
-        const int r = i / kChunkW, k = i - r * kChunkW;
+      const int k0 = (u % nchunks) * kBlockW;
+      const int kc = min(kBlockW, W - k0);
+      for (int i = tid; i < (rows + kItems) * kBlockW; i += blockDim.x) {
+        const int r = i / kBlockW, k = i - r * kBlockW;
         const uint32_t* src;
         uint32_t* dst;
         bool ok;
@@ -226,7 +232,7 @@ support_count_kernel(const uint32_t* __restrict__ occ,
     const uint32_t* st = s_ring + (u % kStages) * p.stage_words;
     const uint32_t* a = (p.flat ? s_occ : st) + (warp * 16 + g) * p.ld_occ + t;
     const uint32_t* bq = (p.flat ? st : st + p.occ_words) + g * p.ld_db + t;
-    const int kw = p.flat ? p.kw : min(kChunkW, W - chunk * kChunkW);
+    const int kw = p.flat ? p.kw : min(kBlockW, W - chunk * kBlockW);
     const int a8 = 8 * p.ld_occ;
     for (int k = 0; k < kw; k += 8) {
       const uint32_t a0 = a[k], a1 = a[a8 + k], a2 = a[k + 4], a3 = a[a8 + k + 4];
@@ -238,7 +244,7 @@ support_count_kernel(const uint32_t* __restrict__ occ,
     }
     if (chunk != nchunks - 1) continue;
 
-    // epilogue: the warp's [16, kTileItems] tile through shared memory
+    // epilogue: the warp's [16, kItems] tile through shared memory
 #pragma unroll
     for (int n = 0; n < kFrags; ++n) {
       *reinterpret_cast<int2*>(s_out + g * kOutLd + n * 8 + 2 * t) =
@@ -248,18 +254,18 @@ support_count_kernel(const uint32_t* __restrict__ occ,
       acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0;
     }
     __syncwarp();
-    const int j0 = tile_of(u) * kTileItems;
+    const int j0 = tile_of(u) * kItems;
     const int b0 = row0 + warp * 16;
-    if ((M & 3) == 0) {  // 16 lanes x 16 bytes per row, two rows a pass
-      const int c = (lane & 15) * 4;
-      for (int r = lane >> 4; r < 16 && b0 + r < B; r += 2) {
+    if ((M & 3) == 0) {  // kVecRow lanes x 16 bytes per row, kRowsPass rows
+      const int c = (lane % kVecRow) * 4;
+      for (int r = lane / kVecRow; r < 16 && b0 + r < B; r += kRowsPass) {
         if (j0 + c < M)
           *reinterpret_cast<int4*>(out + static_cast<size_t>(b0 + r) * M + j0 + c) =
               *reinterpret_cast<const int4*>(s_out + r * kOutLd + c);
       }
     } else {
       for (int r = 0; r < 16 && b0 + r < B; ++r) {
-        for (int c = lane; c < kTileItems && j0 + c < M; c += 32)
+        for (int c = lane; c < kItems && j0 + c < M; c += 32)
           out[static_cast<size_t>(b0 + r) * M + j0 + c] = s_out[r * kOutLd + c];
       }
     }
@@ -268,52 +274,69 @@ support_count_kernel(const uint32_t* __restrict__ occ,
   cp_async_wait<0>();
 }
 
+// Sets the instantiation's shared-memory limit, sizes its persistent grid
+// and launches it.
+template <int kItems, int kBlockW>
+cudaError_t launch(const void* occ, const void* db, void* out, int B, int M,
+                   int W, int warps, int sms, cudaStream_t stream) {
+  auto* kern = support_count_kernel<kItems, kBlockW>;
+  const int threads = warps * 32;
+  const int row_blocks = (B + 16 * warps - 1) / (16 * warps);
+  const int ntiles = (M + kItems - 1) / kItems;
+  const size_t bytes =
+      static_cast<size_t>(Plan(W, warps, kItems, kBlockW).words()) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                        bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+
+  // A persistent grid: no more blocks than fit at once, each walking tiles.
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  const long long groups = resident / row_blocks > 1 ? resident / row_blocks : 1;
+  const int grid_y = static_cast<int>(groups < ntiles ? groups : ntiles);
+  kern<<<dim3(row_blocks, grid_y), threads, bytes, stream>>>(
+      static_cast<const uint32_t*>(occ), static_cast<const uint32_t*>(db),
+      static_cast<int32_t*>(out), B, M, W);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; returns 0, or the CUDA error of the launch or of
-// the calls that size it.  occ, db and out must be 16-byte aligned.
+// Launches on `stream` with the tile (block_b, block_m, block_w): block_b
+// in {16, 32, ..., 128} (a multiple of 16), block_m in {32, 64, 128},
+// block_w in {32, 64}.  Returns 0, or the CUDA error of the launch or of
+// the calls that size it (cudaErrorInvalidValue for a tile that is not
+// instantiated).  occ, db and out must be 16-byte aligned.
 int sc_support_count(const void* occ, const void* db, void* out, int B, int M,
-                     int W, void* stream) {
+                     int W, int block_b, int block_m, int block_w,
+                     void* stream) {
   if (B <= 0 || M <= 0) return 0;
+  if (block_b < 16 || block_b > 16 * kMaxWarps || block_b % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // Rows per block: up to 128, fewer when the item tiles alone would not
-  // give every SM two blocks.
-  const int ntiles = (M + kTileItems - 1) / kTileItems;
-  int warps = min(kMaxWarps, (B + 15) / 16);
-  int row_blocks = (B + 16 * warps - 1) / (16 * warps);
-  while (warps > 1 && static_cast<long long>(row_blocks) * ntiles < 2 * sms) {
-    warps = (warps + 1) / 2;
-    row_blocks = (B + 16 * warps - 1) / (16 * warps);
+  const int warps = block_b / 16;
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (block_m * 1000 + block_w) {
+    case 32032: err = launch<32, 32>(occ, db, out, B, M, W, warps, sms, s); break;
+    case 32064: err = launch<32, 64>(occ, db, out, B, M, W, warps, sms, s); break;
+    case 64032: err = launch<64, 32>(occ, db, out, B, M, W, warps, sms, s); break;
+    case 64064: err = launch<64, 64>(occ, db, out, B, M, W, warps, sms, s); break;
+    case 128032: err = launch<128, 32>(occ, db, out, B, M, W, warps, sms, s); break;
+    case 128064: err = launch<128, 64>(occ, db, out, B, M, W, warps, sms, s); break;
+    default: err = cudaErrorInvalidValue;
   }
-  const int threads = warps * 32;
-  const size_t bytes = static_cast<size_t>(Plan(W, warps).words()) * 4;
-
-  err = cudaFuncSetAttribute(support_count_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  int per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, support_count_kernel, threads, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-
-  // A persistent grid: no more blocks than fit at once, each walking tiles.
-  const long long resident = static_cast<long long>(per_sm) * sms;
-  const long long groups = resident / row_blocks > 1 ? resident / row_blocks : 1;
-  const int grid_y = static_cast<int>(groups < ntiles ? groups : ntiles);
-  support_count_kernel<<<dim3(row_blocks, grid_y), threads, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(occ), static_cast<const uint32_t*>(db),
-      static_cast<int32_t*>(out), B, M, W);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 const char* sc_error_string(int code) {

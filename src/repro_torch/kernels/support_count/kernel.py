@@ -14,17 +14,22 @@ version (`ref.support_count_ref`) is chosen by the dispatch in `ops.py`
 only for tensors on the CPU.
 
 `launches` counts the kernel launches made through `support_count_cuda`,
-and `launch_shapes` counts them by (B, M, W); a run resets both
-(`reset_counts`) and reads them to show that its path went through the
-kernel, and at which shapes.
+`launch_shapes` counts them by (B, M, W) and `launch_tiles` by (B, M, W,
+tile); a run resets them (`reset_counts`) and reads them to show that its
+path went through the kernel, at which shapes and with which tiles.
+
+The tile is a (block_b, block_m, block_w) triple (`autotune.py`): the
+caller's, or, given None, `autotune.choose_blocks` at the exact shape on
+this card.
 
 Sessions may launch from several threads at once (a serving fleet runs one
 worker thread per session), so the library is built and loaded under one
 lock, once per process, and the counters are bumped under another.  The
-launch itself holds a third: the C function sets the kernel's dynamic
-shared-memory limit, a setting of the whole process, just before it
-launches, and another thread's smaller setting in between would make the
-launch fail.  The lock is held only while the launch is enqueued.
+launch itself holds a third: the C function sets the dynamic
+shared-memory limit of the tile's instantiation, a setting of the whole
+process, just before it launches, and another thread's smaller setting of
+the same instantiation in between would make the launch fail.  The lock
+covers every instantiation and is held only while the launch is enqueued.
 """
 
 from __future__ import annotations
@@ -42,8 +47,10 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCE", "NVCC_FLAGS", "build", "build_log", "launch_shapes", "launches",
-           "reset_counts", "support_count_cuda"]
+from . import autotune
+
+__all__ = ["SOURCE", "NVCC_FLAGS", "build", "build_log", "launch_shapes",
+           "launch_tiles", "launches", "reset_counts", "support_count_cuda"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "support_count.cu"
 NVCC_FLAGS = (
@@ -56,12 +63,14 @@ _ALIGN = 16            # bytes: the kernel's cp.async copies and vector stores
 launches = 0
 #: the same launches by (B, M, W) shape
 launch_shapes: Counter = Counter()
+#: the same launches by (B, M, W, (block_b, block_m, block_w))
+launch_tiles: Counter = Counter()
 
 _lib = None
 _build_log = ""
 #: held while the library is built and loaded: one nvcc per process
 _load_lock = threading.Lock()
-#: held while `launches` and `launch_shapes` are read, bumped or reset
+#: held while the counters are read, bumped or reset
 _count_lock = threading.Lock()
 #: held from the kernel's shared-memory setting to its launch (C side)
 _launch_lock = threading.Lock()
@@ -131,6 +140,7 @@ def _load():
             lib = ctypes.CDLL(str(build()))
             lib.sc_support_count.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.sc_support_count.restype = ctypes.c_int
@@ -140,25 +150,30 @@ def _load():
     return _lib
 
 
-def _count_launch(shape: tuple[int, int, int]) -> None:
+def _count_launch(shape: tuple[int, int, int], tile: tuple[int, int, int]) -> None:
     global launches
     with _count_lock:
         launches += 1
         launch_shapes[shape] += 1
+        launch_tiles[(*shape, tile)] += 1
 
 
 def reset_counts() -> None:
-    """Set `launches` to 0 and clear `launch_shapes`."""
+    """Set `launches` to 0 and clear `launch_shapes` and `launch_tiles`."""
     global launches
     with _count_lock:
         launches = 0
         launch_shapes.clear()
+        launch_tiles.clear()
 
 
-def support_count_cuda(occ: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+def support_count_cuda(occ: torch.Tensor, db: torch.Tensor,
+                       blocks: tuple[int, int, int] | None = None) -> torch.Tensor:
     """occ [B, W] int32, db [M, W] int32 (item-major), both contiguous on
     one CUDA device, each starting on a 16-byte boundary -> S [B, M] int32,
-    one kernel launch."""
+    one kernel launch with the tile `blocks` (None: `autotune.
+    choose_blocks` at this shape; a tile that is not a candidate of the
+    shape raises)."""
     for name, t in (("occ", occ), ("db", db)):
         if t.device.type != "cuda":
             raise ValueError(f"support_count_cuda: {name} is on {t.device}, not CUDA")
@@ -181,16 +196,22 @@ def support_count_cuda(occ: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, m), dtype=torch.int32, device=occ.device)
     if b == 0 or m == 0:
         return out
+    if blocks is None:
+        card, sms = autotune.card_info(occ.device)
+        tile = autotune.choose_blocks(b, m, w, "cuda", card=card, sms=sms)
+    else:
+        tile = autotune.check_blocks(blocks, b, m, w)
     lib = _load()
     with torch.cuda.device(occ.device):
         stream = torch.cuda.current_stream(occ.device).cuda_stream
         with _launch_lock:
             rc = lib.sc_support_count(
-                occ.data_ptr(), db.data_ptr(), out.data_ptr(), b, m, w, stream
+                occ.data_ptr(), db.data_ptr(), out.data_ptr(), b, m, w, *tile, stream
             )
     if rc != 0:
         raise RuntimeError(
-            f"support_count kernel launch failed: {lib.sc_error_string(rc).decode()}"
+            f"support_count kernel launch failed at {(b, m, w)} with tile "
+            f"{tile}: {lib.sc_error_string(rc).decode()}"
         )
-    _count_launch((b, m, w))
+    _count_launch((b, m, w), tile)
     return out

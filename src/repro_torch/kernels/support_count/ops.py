@@ -14,8 +14,14 @@ allowed (it is the plain version the kernel is held against).
 The database argument is item-major `[M, W]` (`pack_db`'s layout and the
 flat view of `core.bitmap.BitmapLayout`).  No padding is needed: zero words
 count nothing, and the kernel masks its ragged edges itself.  `blocks` is
-kept in the signatures for parity with the JAX package, where it picks the
-Pallas block shape; the CUDA kernel's tile is fixed, so only None is taken.
+the kernel's (block_b, block_m, block_w) tile (`autotune.py`): None lets
+`autotune.choose_blocks` pick it at the launch's exact shape.  The plain
+version has no tile and ignores `blocks`, as the JAX package's ref does.
+
+Every call of the three entries is one support-count work item of
+`launch.op_cost`: with a cost count active, the item is recorded by its
+shapes and the count runs outside the dispatch mode, so the report is the
+same whichever impl runs and however it sweeps the tiles.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 
 from repro_torch.core.bitmap import item_tiling, words_to_tensor
 from repro_torch.device import resolve_device
+from repro_torch.launch.op_cost import support_count_item
 
 from . import kernel
 from .ref import support_count_ref
@@ -55,18 +62,12 @@ def resolve_impl(impl: str, device) -> str:
     return impl
 
 
-def _no_blocks(blocks):
-    if blocks is not None:
-        raise ValueError(
-            "the CUDA support-count kernel has a fixed tile; blocks must be None"
-        )
-
-
-def _count(occ: torch.Tensor, db: torch.Tensor, impl: str) -> torch.Tensor:
+def _count(occ: torch.Tensor, db: torch.Tensor, impl: str,
+           blocks=None) -> torch.Tensor:
     if occ.shape[1] != db.shape[1]:
         raise ValueError(f"word widths differ: occ {tuple(occ.shape)}, db {tuple(db.shape)}")
     if impl == "cuda":
-        return kernel.support_count_cuda(occ.contiguous(), db.contiguous())
+        return kernel.support_count_cuda(occ.contiguous(), db.contiguous(), blocks)
     if impl == "ref":
         return support_count_ref(occ, db)
     raise ValueError(f"unresolved kernel impl {impl!r}")
@@ -75,8 +76,8 @@ def _count(occ: torch.Tensor, db: torch.Tensor, impl: str) -> torch.Tensor:
 def tile_counts(occ: torch.Tensor, tile_mw: torch.Tensor, *, impl: str,
                 blocks=None) -> torch.Tensor:
     """One tile: occ [B, W] x tile [m_tile, W] -> [B, m_tile] int32."""
-    _no_blocks(blocks)
-    return _count(occ, tile_mw, impl)
+    with support_count_item(occ.shape[0], tile_mw.shape[0], tile_mw.shape[1]):
+        return _count(occ, tile_mw, impl, blocks)
 
 
 def support_counts_tiled(occ: torch.Tensor, db_tiles: torch.Tensor, *,
@@ -88,11 +89,11 @@ def support_counts_tiled(occ: torch.Tensor, db_tiles: torch.Tensor, *,
     the output is identical.  The plain version sweeps tile by tile, which
     bounds its memory on the CPU.
     """
-    _no_blocks(blocks)
     t, mt, w = db_tiles.shape
-    if impl == "cuda":
-        return _count(occ, db_tiles.reshape(t * mt, w), impl)
-    return torch.cat([tile_counts(occ, db_tiles[i], impl=impl) for i in range(t)], dim=1)
+    with support_count_item(occ.shape[0], t * mt, w):
+        if impl == "cuda":
+            return _count(occ, db_tiles.reshape(t * mt, w), impl, blocks)
+        return torch.cat([_count(occ, db_tiles[i], impl) for i in range(t)], dim=1)
 
 
 def support_counts(occ, db_bits, *, impl: str = "auto", blocks=None,
@@ -104,7 +105,6 @@ def support_counts(occ, db_bits, *, impl: str = "auto", blocks=None,
     (default: the card, see `repro_torch.resolve_device`).  `m_tile` sets
     the item tile the plain version sweeps (default `item_tiling`'s).
     """
-    _no_blocks(blocks)
     if isinstance(occ, torch.Tensor):
         dev = occ.device
     else:
@@ -115,11 +115,12 @@ def support_counts(occ, db_bits, *, impl: str = "auto", blocks=None,
     impl = resolve_impl(impl, dev)
     b = occ.shape[0]
     m = db_bits.shape[0]
-    if impl == "cuda":
-        return _count(occ, db_bits, impl)
-    mt = m_tile if m_tile is not None else item_tiling(max(m, 1))[1]
-    if m == 0:
-        return torch.zeros((b, 0), dtype=torch.int32, device=dev)
-    return torch.cat(
-        [_count(occ, db_bits[lo:lo + mt], impl) for lo in range(0, m, mt)], dim=1
-    )
+    with support_count_item(b, m, db_bits.shape[1]):
+        if impl == "cuda":
+            return _count(occ, db_bits, impl, blocks)
+        mt = m_tile if m_tile is not None else item_tiling(max(m, 1))[1]
+        if m == 0:
+            return torch.zeros((b, 0), dtype=torch.int32, device=dev)
+        return torch.cat(
+            [_count(occ, db_bits[lo:lo + mt], impl) for lo in range(0, m, mt)], dim=1
+        )

@@ -51,6 +51,7 @@ def reconstruct_closures(
         db = words_to_tensor(np.asarray(db_bits), dev)
     for lo in range(0, k, chunk):
         hi = min(lo + chunk, k)
+        # blocks=None: the kernel's tile is chosen at each chunk's own shape
         s = support_counts(words_to_tensor(occ[lo:hi], dev), db,
                            impl=impl)  # [chunk, M]
         want = torch.from_numpy(sup[lo:hi].astype(np.int64)).to(dev)

@@ -8,8 +8,8 @@ to thousands (Fig. 5's 1175x point is 1216 cores): it *replays the
 engine's superstep semantics in numpy* over the real deferred-PPC
 enumeration tree of a dataset:
 
-  * the tree comes from the traversal the JAX package's sequential oracle
-    (`repro.core.lcm.lcm_closed`) runs, including the duplicate candidates
+  * the tree comes from the traversal the sequential oracle
+    (`repro_torch.core.lcm.lcm_closed`) runs, including the duplicate candidates
     the engine pops and rejects (they cost real pops), so node counts and
     subtree shapes are not synthetic;
   * each superstep pops <= expand_batch nodes LIFO per miner, pushes that
@@ -79,9 +79,10 @@ def extract_tree(db_bool: np.ndarray, min_sup: int = 1,
                  max_nodes: int = 2_000_000) -> Tree:
     """The enumeration tree the sequential LCM oracle walks, as children lists.
 
-    Mirrors the lcm_closed loop (static min_sup) but records structure:
-    every node the engine would *pop* gets an id — including deferred-PPC
-    duplicates, which become childless nodes (popped, then rejected).
+    Mirrors the loop of `repro_torch.core.lcm.lcm_closed` (static min_sup)
+    but records structure: every node the engine would *pop* gets an id —
+    including deferred-PPC duplicates, which become childless nodes
+    (popped, then rejected).
     """
     from repro_torch.core.bitmap import full_occ, pack_db, supports_np
 

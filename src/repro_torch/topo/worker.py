@@ -19,8 +19,8 @@ query is run this many times on one warm session; the answer is the last
 run's, with every run's wall) and `results_json` (add the ResultSet's
 JSON export).  The answer holds the report's values, the ResultSet's
 SHA-256, every phase's supersteps, per-miner stats and steal telemetry,
-the kernel launches of the last run by (B, M, W) and the collectives it
-made.
+the kernel launches of the last run by (B, M, W) and by (B, M, W, tile),
+and the collectives it made.
 """
 
 from __future__ import annotations
@@ -117,11 +117,15 @@ def main(spec: dict) -> dict:
         "results_sha256": hashlib.sha256(results_json.encode()).hexdigest()[:16],
         "phases": [dict(
             mode=p.mode, supersteps=p.supersteps,
+            kernel_blocks=None if p.kernel_blocks is None else list(p.kernel_blocks),
             stats={k: v.tolist() for k, v in p.output.stats.items()},
             steal_by_round=p.steal_by_round, tier_fairness=p.tier_fairness,
         ) for p in rep.phases],
         "launch_shapes": ([[list(k), v] for k, v in sorted(kernel.launch_shapes.items())]
                           if cuda else []),
+        "launch_tiles": ([[[*k[:3], list(k[3])], v]
+                          for k, v in sorted(kernel.launch_tiles.items())]
+                         if cuda else []),
         "collectives": (None if group is None
                         else {"calls": group.calls, "seconds": group.seconds}),
     }

@@ -461,19 +461,20 @@ def test_validation_errors_match_jax(name, shared_sessions):
     "trace_period", "ckpt_period", "topology", "kernel_blocks", "stream",
     "ckpt_dir", "resume_from", "device_mismatch"])
 def test_unported_options_raise(case):
-    """The trace ring, the segmented program, streaming and topologies are
-    ported (items 7-10: the session runs them; a topology of another miner
-    count is refused with the JAX package's error), and
-    ckpt_dir/resume_from without ckpt_period are refused as the JAX
-    session refuses them."""
+    """The trace ring, the segmented program, streaming, topologies and the
+    kernel's tile are ported (items 7-10 and the autotuner: the session
+    runs them; a topology of another miner count is refused with the JAX
+    package's error, a tile that is not a candidate of the superstep's
+    launch with the candidates), and ckpt_dir/resume_from without
+    ckpt_period are refused as the JAX session refuses them."""
     db, labels = small_problem(0)
     _, td = datasets(db, labels)
     q = tapi.SignificantPatternQuery()
     runtime = dict(trace_period=dict(trace_period=1),
                    ckpt_period=dict(ckpt_period=4),
                    topology=dict(topology=Topology(1, 1)),
-                   kernel_blocks=dict(kernel_blocks=(8, 512, 32))).get(case)
-    if case in ("trace_period", "ckpt_period", "topology"):
+                   kernel_blocks=dict(kernel_blocks=(16, 32, 32))).get(case)
+    if case in ("trace_period", "ckpt_period", "topology", "kernel_blocks"):
         rep = tapi.MinerSession(device="cpu", runtime=tapi.RuntimeConfig(**runtime)).run(
             td, q)
         assert all((p.trace is not None) == (case == "trace_period") for p in rep.phases)
@@ -484,14 +485,20 @@ def test_unported_options_raise(case):
             with pytest.raises(ValueError, match="topology 2x4 needs 8 devices, got 1"):
                 tapi.MinerSession(device="cpu", runtime=tapi.RuntimeConfig(
                     topology=Topology(2, 4)))
-        return
-    if runtime is not None:
-        exc, match = (ValueError, "kernel_blocks")
-        with pytest.raises(exc, match=match):
-            tapi.MinerSession(device="cpu", runtime=tapi.RuntimeConfig(**runtime))
         if case == "kernel_blocks":
+            # the plain version ignores the tile; the resolved config keeps
+            # it, as the JAX package's does
+            assert all(p.kernel_blocks == (16, 32, 32) for p in rep.phases)
+            flat = tapi.MinerSession(device="cpu").run(td, q)
+            assert rep.results.to_json() == flat.results.to_json()
+            assert all(p.kernel_blocks is None for p in flat.phases)
+            bad = tapi.MinerSession(device="cpu", runtime=tapi.RuntimeConfig(
+                kernel_blocks=(8, 512, 32)))
+            with pytest.raises(ValueError, match=r"kernel_blocks \(8, 512, 32\).*"
+                               r"valid.*\(16, 64, 32\)"):
+                bad.run(td, q)
             with pytest.raises(ValueError, match="kernel_blocks"):
-                tapi.RuntimeConfig(**runtime).resolve(td.bucket, 1, "cpu")
+                tapi.RuntimeConfig(kernel_blocks=(8, 512, 32)).resolve(td.bucket, 1, "cpu")
         return
     session = tapi.MinerSession(device="cpu")
     if case == "device_mismatch":

@@ -148,15 +148,22 @@ def test_pack_and_deal_match_jax():
 def test_unported_options_raise():
     """Nothing is left unported (the trace ring and the segmented program
     are tests/test_torch_{trace,fault_tolerance}.py's, topologies
-    tests/test_torch_topo.py's): a topology of another miner count and a
-    Pallas block triple are refused as the JAX engine refuses them."""
+    tests/test_torch_topo.py's): a topology of another miner count is
+    refused as the JAX engine refuses it; a kernel tile runs (the plain
+    version ignores it) when it is a candidate of the superstep's launch
+    and is refused, with the candidates, when it is not."""
     from repro_torch.topo import Topology
 
     db, labels = small_problem(0)
     with pytest.raises(ValueError, match="topology 2x4 needs 8 devices, got 1"):
         teng.mine(db, labels, mode="count", min_sup=3,
                   cfg=teng.EngineConfig(topology=Topology(2, 4)), device="cpu")
-    with pytest.raises(ValueError, match="kernel_blocks"):
+    want = teng.mine(db, labels, mode="count", min_sup=3, device="cpu")
+    got = teng.mine(db, labels, mode="count", min_sup=3,
+                    cfg=teng.EngineConfig(kernel_blocks=(16, 32, 32)), device="cpu")
+    assert got.supersteps == want.supersteps
+    np.testing.assert_array_equal(got.hist, want.hist)
+    with pytest.raises(ValueError, match=r"kernel_blocks .*valid.*\(16, 32, 32\)"):
         teng.mine(db, labels, mode="count", min_sup=3,
                   cfg=teng.EngineConfig(kernel_blocks=(8, 512, 32)), device="cpu")
 

@@ -1,7 +1,7 @@
 """The port's examples (`repro_torch.examples.quickstart`, `.gwas_mining`)
 run with `--smoke --device cpu` and print what the JAX package's examples
-print; the quickstart's oracle constants are the JAX package's sequential
-oracle's answer."""
+print; the quickstart's oracle (`repro_torch.core.lamp`) gives the JAX
+package's sequential oracle's answer."""
 
 import os
 import subprocess
@@ -14,7 +14,8 @@ pytest.importorskip("torch")
 import repro.api as japi  # noqa: E402
 from repro.core.lamp import lamp  # noqa: E402
 from repro.data.synthetic import SyntheticSpec, generate  # noqa: E402
-from repro_torch.examples.quickstart import DEMO, ORACLE, pattern_digest  # noqa: E402
+from repro_torch.core.lamp import lamp as port_lamp  # noqa: E402
+from repro_torch.examples.quickstart import DEMO  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu",
@@ -38,17 +39,16 @@ def _lines(proc, timeout=300):
 
 
 def test_quickstart_oracle_constants_are_the_oracles():
+    """The quickstart's oracle, the port's LCM+LAMP on its demo matrix,
+    gives the JAX oracle's values and patterns, P-values exactly."""
     db, labels, _ = generate(SyntheticSpec(**DEMO))
-    ref = lamp(db, labels, alpha=0.05)
-    assert (ref.lambda_final, ref.min_sup, ref.correction_factor, ref.delta,
-            len(ref.significant)) == (
-        ORACLE["lambda_final"], ORACLE["min_sup"], ORACLE["correction_factor"],
-        ORACLE["delta"], ORACLE["n_significant"])
-    assert [(tuple(sorted(s.items)), s.support, s.pos_support, s.pvalue)
-            for s in ref.significant[:5]] == list(ORACLE["top"])
-    assert pattern_digest((s.items, s.support, s.pos_support)
-                          for s in ref.significant if s.items) == \
-        ORACLE["patterns_sha256"]
+    want = lamp(db, labels, alpha=0.05)
+    got = port_lamp(db, labels, alpha=0.05)
+    assert (got.lambda_final, got.min_sup, got.correction_factor, got.delta) == (
+        want.lambda_final, want.min_sup, want.correction_factor, want.delta)
+    assert [(s.items, s.support, s.pos_support, s.pvalue) for s in got.significant] \
+        == [(s.items, s.support, s.pos_support, s.pvalue) for s in want.significant]
+    assert len(want.significant) == 147
 
 
 def test_quickstart_prints_what_the_jax_example_prints():

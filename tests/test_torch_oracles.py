@@ -1,6 +1,7 @@
 """The port held against the JAX package on the CPU: its queries against
-the sequential oracles (`repro.core.lcm`, `repro.core.lamp`), its
-statistics and its observability against the JAX package's own.
+the sequential oracles (`repro.core.lcm`, `repro.core.lamp`), its copies
+of those oracles (`repro_torch.core.lcm`, `.lamp`), its statistics and its
+observability against the JAX package's own.
 
 The host float64 P-values are copies of the JAX package's numpy code, so
 they must agree exactly.  The device float32 P-values (torch `lgamma` /
@@ -26,8 +27,13 @@ import repro.core.lcm as jlcm  # noqa: E402
 import repro.obs as jobs  # noqa: E402
 import repro.stats as jstats  # noqa: E402
 import repro_torch.api as tapi  # noqa: E402
+import repro_torch.core.fisher as tfisher  # noqa: E402
+import repro_torch.core.lamp as tlamp  # noqa: E402
+import repro_torch.core.lcm as tlcm  # noqa: E402
 import repro_torch.obs as tobs  # noqa: E402
 import repro_torch.stats as tstats  # noqa: E402
+from repro_torch.core.bitmap import full_occ, pack_db  # noqa: E402
+from repro_torch.data.synthetic import SyntheticSpec, generate  # noqa: E402
 
 #: float32 unit roundoff
 EPS32 = float(np.finfo(np.float32).eps)
@@ -210,3 +216,101 @@ def test_span_tracer_events(profiler, tmp_path):
         assert json.load(f) == tracer.to_chrome_trace()
     tracer.clear()
     assert tracer.events() == []
+
+
+# ------------------------------------------- the sequential oracles, copied
+
+
+def small_db(seed):
+    """A database of tests/test_lcm.py's strategy (4-40 transactions, 2-10
+    items, density 0.05-0.8), drawn from a seed."""
+    rng = np.random.default_rng(seed)
+    n, m = int(rng.integers(4, 41)), int(rng.integers(2, 11))
+    return rng.random((n, m)) < rng.uniform(0.05, 0.8)
+
+
+def labelled_db(seed):
+    """A labelled database of tests/test_lamp.py's strategy."""
+    rng = np.random.default_rng(seed)
+    n, m = int(rng.integers(10, 49)), int(rng.integers(3, 10))
+    db = rng.random((n, m)) < rng.uniform(0.1, 0.7)
+    labels = np.zeros(n, dtype=bool)
+    labels[rng.choice(n, size=int(rng.integers(2, n - 1)), replace=False)] = True
+    return db, labels
+
+
+def _stats(s):
+    return (s.nodes_popped, s.nodes_rejected, s.closed_found, s.max_stack, s.supports_gemv)
+
+
+@pytest.mark.parametrize("seed", range(12))
+@pytest.mark.parametrize("min_sup", [1, 3, 6])
+def test_port_lcm_equals_jax_lcm(seed, min_sup):
+    """`lcm_closed` and `brute_force_closed`: the same closed sets in the
+    same order with the same stats; `closure_np` the same items."""
+    db = small_db(seed)
+    got, gst = tlcm.lcm_closed(db, min_sup=min_sup)
+    want, wst = jlcm.lcm_closed(db, min_sup=min_sup)
+    assert got == want and _stats(gst) == _stats(wst)
+    assert tlcm.brute_force_closed(db, min_sup) == jlcm.brute_force_closed(db, min_sup)
+    bits = pack_db(db)
+    occ = full_occ(db.shape[0]) & bits[0]
+    np.testing.assert_array_equal(tlcm.closure_np(occ, bits), jlcm.closure_np(occ, bits))
+
+
+def test_port_lcm_min_sup_filters_as_jax():
+    """tests/test_lcm.py::test_min_sup_filters's database."""
+    db = np.random.default_rng(2).random((30, 8)) < 0.4
+    for ms in [1, 2, 4, 8]:
+        assert tlcm.lcm_closed(db, min_sup=ms)[0] == jlcm.lcm_closed(db, min_sup=ms)[0]
+
+
+def _lamp_fields(res):
+    return (res.n_transactions, res.n_pos, res.alpha, res.lambda_final, res.min_sup,
+            res.correction_factor, res.delta,
+            [(s.items, s.support, s.pos_support, s.pvalue) for s in res.significant],
+            _stats(res.phase1_stats), _stats(res.phase2_stats))
+
+
+@pytest.mark.parametrize("seed", range(10))
+@pytest.mark.parametrize("alpha", [0.01, 0.05, 0.2])
+@pytest.mark.parametrize("statistic", ["fisher", "chi2"])
+def test_port_lamp_equals_jax_lamp(seed, alpha, statistic):
+    """`lamp` and `lamp_phase1` field for field, P-values exactly."""
+    db, labels = labelled_db(seed)
+    got = tlamp.lamp(db, labels, alpha=alpha, statistic=statistic)
+    want = jlamp.lamp(db, labels, alpha=alpha, statistic=statistic)
+    assert _lamp_fields(got) == _lamp_fields(want)
+    n_pos = int(labels.sum())
+    g1 = tlamp.lamp_phase1(db, n_pos, alpha, statistic)
+    w1 = jlamp.lamp_phase1(db, n_pos, alpha, statistic)
+    assert g1[:2] == w1[:2] and _stats(g1[2]) == _stats(w1[2])
+
+
+def test_port_lamp_planted_and_null_data_as_jax():
+    """tests/test_lamp.py's planted-pattern and null-data cases."""
+    spec = SyntheticSpec(name="t", n_items=40, n_transactions=120, density=0.08,
+                         n_pos=40, n_planted=2, planted_pos_rate=0.8,
+                         planted_neg_rate=0.02, seed=7)
+    db, labels, _ = generate(spec)
+    got = tlamp.lamp(db, labels, alpha=0.05)
+    assert got.significant and _lamp_fields(got) == _lamp_fields(
+        jlamp.lamp(db, labels, alpha=0.05))
+    rng = np.random.default_rng(3)
+    for _ in range(30):
+        db = rng.random((40, 7)) < 0.3
+        labels = np.zeros(40, dtype=bool)
+        labels[rng.choice(40, size=15, replace=False)] = True
+        assert _lamp_fields(tlamp.lamp(db, labels)) == _lamp_fields(jlamp.lamp(db, labels))
+
+
+def test_port_phase1_state_and_fisher_shim():
+    """`Phase1State` moves lambda as JAX's does; the `core.fisher` shim
+    re-exports the port's Fisher functions."""
+    a, b = tlamp.Phase1State(48, 16, 0.05), jlamp.Phase1State(48, 16, 0.05)
+    for sup in [48, 30, 30, 12, 12, 12, 9, 40, 25]:
+        assert a.observe(sup) == b.observe(sup)
+    np.testing.assert_array_equal(a.cnt, b.cnt)
+    assert tfisher.fisher_pvalue is tstats.fisher_pvalue
+    np.testing.assert_array_equal(tfisher.lamp_count_thresholds(48, 16, 0.05),
+                                  jstats.lamp_count_thresholds(48, 16, 0.05))

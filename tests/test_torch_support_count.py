@@ -178,6 +178,30 @@ def test_cuda_kernel_matches_ref():
 
 
 @pytest.mark.cuda
+def test_cuda_kernel_matches_ref_at_every_tile():
+    """Every candidate tile (autotune.candidate_blocks) == the plain
+    version (needs a card), at shapes that cross its row, item and K edges
+    under both K plans (W = 65: chunks of 32 or 64 words), and each launch
+    is counted under its tile."""
+    from repro_torch.kernels.support_count import autotune
+
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for b, m, w in [(1, 33, 12), (17, 4100, 22), (111, 1191, 32), (129, 257, 65)]:
+        occ = torch.randint(-2**31, 2**31, (b, w), dtype=torch.int32,
+                            device="cuda", generator=g)
+        db = torch.randint(-2**31, 2**31, (m, w), dtype=torch.int32,
+                           device="cuda", generator=g)
+        want = support_count_ref(occ, db)
+        for tile in autotune.candidate_blocks(b, m, w):
+            kernel.reset_counts()
+            got = kernel.support_count_cuda(occ, db, blocks=tile)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), ((b, m, w), tile)
+            assert kernel.launch_tiles == {(b, m, w, tile): 1}
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_refuses_misaligned_db():
     """A view that does not start on a 16-byte boundary (db[1:] with W odd)
     is refused by the wrapper, before any launch."""
@@ -231,13 +255,13 @@ def test_load_builds_once_and_counts_lose_nothing_across_threads(monkeypatch):
     assert len(built) == 1 and len(handles) == 8
     assert all(h is handles[0] for h in handles)
 
-    n, shape = 5000, (16, 2048, 32)
+    n, shape, tile = 5000, (16, 2048, 32), (16, 64, 32)
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)    # switch threads as often as possible
     try:
         kernel.reset_counts()
         bumpers = [threading.Thread(target=lambda: [
-            kernel._count_launch(shape) for _ in range(n)]) for _ in range(8)]
+            kernel._count_launch(shape, tile) for _ in range(n)]) for _ in range(8)]
         for t in bumpers:
             t.start()
         for t in bumpers:
@@ -247,5 +271,7 @@ def test_load_builds_once_and_counts_lose_nothing_across_threads(monkeypatch):
     assert not any(t.is_alive() for t in bumpers)
     assert kernel.launches == 8 * n
     assert kernel.launch_shapes == {shape: 8 * n}
+    assert kernel.launch_tiles == {(*shape, tile): 8 * n}
     kernel.reset_counts()
     assert kernel.launches == 0 and not kernel.launch_shapes
+    assert not kernel.launch_tiles
