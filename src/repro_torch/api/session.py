@@ -191,6 +191,12 @@ class MinerSession:
         self._m_trace_drop = m.counter(
             "miner_trace_dropped_total",
             "superstep trace records lost to ring wrap")
+        self._m_span_drop = m.counter(
+            "miner_spans_dropped_total",
+            "host span events lost to the span tracer's ring")
+        # (tracer, its `dropped` already exported): the tracer may be
+        # swapped for another between queries
+        self._span_drops_seen = (self.tracer, 0)
         self._m_ckpt_write = m.histogram(
             "miner_ckpt_write_seconds", "frontier checkpoint write latency")
         self._m_ckpt_restore = m.histogram(
@@ -225,6 +231,8 @@ class MinerSession:
         # one-shot ResultStream installed by run(stream=...), consumed by
         # the first _build_results of the query, cleared in run()'s finally
         self._stream = None
+        # numbers this session's queries (the `qid` of each query span)
+        self._qid = 0
 
     @property
     def n_devices(self) -> int:
@@ -426,7 +434,7 @@ class MinerSession:
                 args, ctx = make_program_args(
                     dataset.packed, n_proc=self.n_miners, cfg=cfg, mode=mode,
                     alpha=alpha, min_sup=min_sup, delta=delta,
-                    statistic=statistic,
+                    statistic=statistic, tracer=self.tracer,
                 )
             if self.group is not None:
                 # every process dealt the same global roots; keep this
@@ -452,7 +460,7 @@ class MinerSession:
                         delta=delta, statistic=statistic, ctx=ctx, ckpt=ckpt,
                     )
                 else:
-                    raw = entry.compiled(*args)
+                    raw = entry.compiled(*args, tracer=self.tracer)
                 if self.group is not None:
                     # every process gathers the same full outputs, so
                     # postprocess (and the ResultSet) is identical everywhere
@@ -552,8 +560,11 @@ class MinerSession:
         carry, partial = run_segments(
             entry.compiled, carry, cfg=cfg, static=ctx["static"],
             should_stop=self._should_stop, on_segment=on_segment,
+            tracer=self.tracer,
         )
-        return segments_raw_output(carry), partial, resumed
+        with self.tracer.span("outputs"):
+            raw = segments_raw_output(carry)
+        return raw, partial, resumed
 
     # --------------------------------------------------------------- queries
     def run(self, dataset: Dataset, query: Query, *, stream=None,
@@ -595,9 +606,10 @@ class MinerSession:
         self._resume_from = resume_from
         self._should_stop = should_stop if self.runtime.ckpt_period else None
         self._phase_seq = 0
+        self._qid += 1
         try:
             with self.tracer.span(f"query:{type(query).__name__}",
-                                  dataset=dataset.name):
+                                  dataset=dataset.name, qid=self._qid):
                 report = query.run(self, dataset)
         finally:
             self._stream = None
@@ -605,10 +617,23 @@ class MinerSession:
             self._resume_from = None
             self._should_stop = None
             self._phase_seq = 0
+            self._export_span_drops()
         self._m_query.labels(query=report.query).observe(
             time.perf_counter() - t0
         )
         return report
+
+    def _export_span_drops(self) -> None:
+        """Add the tracer's newly overwritten events to
+        `miner_spans_dropped_total`."""
+        tracer = self.tracer
+        seen_tracer, seen = self._span_drops_seen
+        dropped = getattr(tracer, "dropped", 0)
+        if tracer is not seen_tracer:
+            seen = 0
+        if dropped > seen:
+            self._m_span_drop.inc(dropped - seen)
+        self._span_drops_seen = (tracer, dropped)
 
     def mine(
         self,
@@ -671,7 +696,7 @@ class MinerSession:
                 filter_host=filter_host, dropped=phase_out.emit_dropped,
                 item_names=dataset.item_names, statistic=statistic,
                 impl=self._resolve(dataset.bucket).kernel_impl,
-                stream=stream,
+                stream=stream, tracer=self.tracer,
             )
 
     def _root_record(self, dataset: Dataset, phase_out: MineOutput,

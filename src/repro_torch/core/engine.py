@@ -58,6 +58,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.support_count import autotune
 from repro_torch.kernels.support_count.ops import resolve_impl
+from repro_torch.obs.span import NULL_TRACER
 from repro_torch.obs.trace import N_FIELDS, SuperstepTrace, decode_trace
 from repro_torch.stats import get_statistic
 
@@ -509,6 +510,14 @@ def build_mine_step(
     which advances a `_Carry` in place to superstep t_stop (or until the
     frontier drains) and returns it.
 
+    Either program takes a keyword `tracer` (`obs.SpanTracer`; default
+    `NULL_TRACER`) and records into it, beneath the caller's spans: the
+    classic program's `carry` (the carry allocated and the dealt stacks
+    uploaded) and `outputs` (read back to the host), and in both one
+    `superstep` span per iteration (args `t`, and `fired` where stealing is
+    on) holding `expand`, `steal`, `global` and `census.read`, the host's
+    one wait on the device a superstep.
+
     `group` (a `core.collectives.MinerGroup`, classic program only) runs
     this process's block of the schedule's P miners: the program then
     takes that block's rows of the dealt roots (`topo.bootstrap.
@@ -571,71 +580,87 @@ def build_mine_step(
         if idx >= tcap:   # the ring wrapped over the oldest record
             st.stats[:, Stat.TRACE_DROPPED] += 1
 
-    def run_to(st, t_stop, db_tiles, pos_mask, thr_t, delta_t, n_act, npos_act):
+    def run_to(st, t_stop, db_tiles, pos_mask, thr_t, delta_t, n_act, npos_act,
+               tracer):
         # `work` (miners with work) is read back once per superstep: the
         # loop's only device -> host sync
+        span = tracer.span
         while st.work > 0 and st.t < t_stop:
             t = st.t
-            sampled = period > 0 and t % period == 0
-            if sampled:
-                stats_before = st.stats.clone()
-            sig_cnt = expand(st, db_tiles, pos_mask, delta_t, n_act, npos_act)
-            st.n_sig += sig_cnt
-            # the hunger census: REQUEST side of the steal exchange and the
-            # exact termination test (steals only redistribute work)
-            hungry_vec = hunger_census(st.sp)
-            if group is not None:  # every process reads the global census
-                (hungry_vec,) = group.all_gather(hungry_vec)
-                n_hungry_host = int(hungry_vec.sum())
-            n_hungry = hungry_vec.sum()
-            k_given = k_recv = no_steal
-            if cfg.steal_enabled:
-                got, gave, k_given, k_recv = steal_round(
-                    t, hungry_vec, st,
-                    any_hungry=group is None or n_hungry_host > 0)
-                st.stats[:, Stat.STEALS_GOT] += got
-                st.stats[:, Stat.GIVES] += gave
-                st.stats[:, Stat.STOLEN_NODES] += k_given
-                st.stats[:, Stat.STEAL_ROUNDS] += (n_hungry > 0).long()
-            st.stats[:, Stat.IDLE_STEPS] += (st.sp == 0).long()
-            st.stats[:, Stat.SUPERSTEPS] += 1
-            if sampled:
-                record(st, t, stats_before, n_hungry, sig_cnt, k_given, k_recv)
-            global_sync(t, st, thr_t)
-            st.work = n_proc - (int(n_hungry) if group is None else n_hungry_host)
-            st.t = t + 1
+            with span("superstep", t=t) as step_args:
+                sampled = period > 0 and t % period == 0
+                if sampled:
+                    stats_before = st.stats.clone()
+                with span("expand"):
+                    sig_cnt = expand(st, db_tiles, pos_mask, delta_t, n_act, npos_act)
+                st.n_sig += sig_cnt
+                # the hunger census: REQUEST side of the steal exchange and
+                # the exact termination test (steals only redistribute work)
+                hungry_vec = hunger_census(st.sp)
+                if group is not None:  # every process reads the global census
+                    (hungry_vec,) = group.all_gather(hungry_vec)
+                    with span("census.read"):
+                        n_hungry_host = int(hungry_vec.sum())
+                n_hungry = hungry_vec.sum()
+                k_given = k_recv = no_steal
+                if cfg.steal_enabled:
+                    with span("steal"):
+                        got, gave, k_given, k_recv = steal_round(
+                            t, hungry_vec, st,
+                            any_hungry=group is None or n_hungry_host > 0)
+                        st.stats[:, Stat.STEALS_GOT] += got
+                        st.stats[:, Stat.GIVES] += gave
+                        st.stats[:, Stat.STOLEN_NODES] += k_given
+                        st.stats[:, Stat.STEAL_ROUNDS] += (n_hungry > 0).long()
+                st.stats[:, Stat.IDLE_STEPS] += (st.sp == 0).long()
+                st.stats[:, Stat.SUPERSTEPS] += 1
+                if sampled:
+                    record(st, t, stats_before, n_hungry, sig_cnt, k_given, k_recv)
+                with span("global"):
+                    global_sync(t, st, thr_t)
+                if group is None:
+                    with span("census.read"):
+                        n_hungry_host = int(n_hungry)
+                st.work = n_proc - n_hungry_host
+                st.t = t + 1
+                if step_args is not None and cfg.steal_enabled:
+                    step_args["fired"] = n_hungry_host > 0
         return st
 
     def program(init_occ, init_meta, init_sp, db_tiles, pos_mask, thr, lam0,
-                delta, n_act, npos_act):
-        st = _Carry(init_occ=init_occ, init_meta=init_meta, init_sp=init_sp,
-                    lam0=lam0, nb=NB, snb=SNB, nb2=NB2, out_cap=cfg.out_cap,
-                    trace_cap=tcap, device=device)
-        if group is not None:  # the census over every process's miners
-            st.work = group.sum_int(st.work)
-        delta_t = torch.tensor(delta, dtype=torch.float32, device=device)
-        run_to(st, cfg.max_steps, db_tiles, pos_mask, _thr_tensor(thr, device),
-               delta_t, n_act, npos_act)
+                delta, n_act, npos_act, *, tracer=NULL_TRACER):
+        with tracer.span("carry"):
+            st = _Carry(init_occ=init_occ, init_meta=init_meta, init_sp=init_sp,
+                        lam0=lam0, nb=NB, snb=SNB, nb2=NB2, out_cap=cfg.out_cap,
+                        trace_cap=tcap, device=device)
+            if group is not None:  # the census over every process's miners
+                st.work = group.sum_int(st.work)
+            delta_t = torch.tensor(delta, dtype=torch.float32, device=device)
+            thr_t = _thr_tensor(thr, device)
+        run_to(st, cfg.max_steps, db_tiles, pos_mask, thr_t, delta_t, n_act,
+               npos_act, tracer)
         # one exact full-histogram sum at termination
         i32 = np.int32
         out_cap = cfg.out_cap
-        return (
-            st.hist.sum(dim=0).cpu().numpy().astype(i32),
-            int(st.lam),
-            st.t,
-            st.stats.cpu().numpy().astype(i32),
-            tensor_to_words(st.out_occ[:, :out_cap]),
-            st.out_meta[:, :out_cap].cpu().numpy(),
-            st.out_ptr.cpu().numpy().astype(i32),
-            int(st.n_sig.sum()),
-            st.trace.cpu().numpy() if period else None,
-            st.hist2d.sum(dim=0).cpu().numpy().astype(i32),
-        )
+        with tracer.span("outputs"):
+            return (
+                st.hist.sum(dim=0).cpu().numpy().astype(i32),
+                int(st.lam),
+                st.t,
+                st.stats.cpu().numpy().astype(i32),
+                tensor_to_words(st.out_occ[:, :out_cap]),
+                st.out_meta[:, :out_cap].cpu().numpy(),
+                st.out_ptr.cpu().numpy().astype(i32),
+                int(st.n_sig.sum()),
+                st.trace.cpu().numpy() if period else None,
+                st.hist2d.sum(dim=0).cpu().numpy().astype(i32),
+            )
 
-    def seg_program(st, db_tiles, pos_mask, thr, delta, n_act, npos_act, t_stop):
+    def seg_program(st, db_tiles, pos_mask, thr, delta, n_act, npos_act, t_stop,
+                    *, tracer=NULL_TRACER):
         delta_t = torch.tensor(delta, dtype=torch.float32, device=device)
         return run_to(st, t_stop, db_tiles, pos_mask, _thr_tensor(thr, device),
-                      delta_t, n_act, npos_act)
+                      delta_t, n_act, npos_act, tracer)
 
     return seg_program if cfg.ckpt_period > 0 else program
 
@@ -651,13 +676,17 @@ def make_phase_args(
     min_sup: int,
     delta: float,
     statistic: str | None = "fisher",
+    tracer=NULL_TRACER,
 ):
     """Build the program argument tuple (and the postprocess context).
 
     Returns (args, ctx) with ctx = dict(thr, start_sup) for postprocess.
+    The root deal is the `roots` span of `tracer`.
     """
     start_sup = min_sup if mode != "lamp1" else 1
-    init_occ, init_meta, init_sp = deal_roots(packed, n_proc, stack_cap, start_sup)
+    with tracer.span("roots"):
+        init_occ, init_meta, init_sp = deal_roots(packed, n_proc, stack_cap,
+                                                  start_sup)
     thr = _thresholds_int(packed.n, packed.n_pos, alpha, statistic)
     thr_pad = np.full(packed.n_pad + 2, INT_MAX, dtype=np.int32)
     thr_pad[: thr.shape[0]] = thr
@@ -724,6 +753,7 @@ def make_program_args(
     min_sup: int,
     delta: float,
     statistic: str | None = "fisher",
+    tracer=NULL_TRACER,
 ):
     """`make_phase_args`, shaped for whichever program cfg selects (cfg is
     resolved: its stack_cap is an int).
@@ -736,6 +766,7 @@ def make_program_args(
     args, ctx = make_phase_args(
         packed, n_proc=n_proc, cfg=cfg, stack_cap=cfg.stack_cap, mode=mode,
         alpha=alpha, min_sup=min_sup, delta=delta, statistic=statistic,
+        tracer=tracer,
     )
     if cfg.ckpt_period <= 0:
         return args, ctx
@@ -756,6 +787,7 @@ def run_segments(
     static: tuple,
     should_stop=None,
     on_segment=None,
+    tracer=NULL_TRACER,
 ):
     """Host loop driving the segmented program to frontier exhaustion.
 
@@ -769,18 +801,22 @@ def run_segments(
     `should_stop` is polled at the loop bottom only, and only while the
     frontier is undrained: a cooperative stop always has at least one
     segment of progress behind it.  Between segments the carry stays on
-    the device; the loop reads only its host ints `t` and `work`.
+    the device; the loop reads only its host ints `t` and `work`.  The
+    move is the `carry` span of `tracer`, which each segment gets too.
 
     Returns (carry, partial), the carry a `_Carry`.
     """
     from repro_torch.testing import faults
 
-    st = carry if isinstance(carry, _Carry) else _Carry.from_fields(
-        carry, static[0].device)
+    if isinstance(carry, _Carry):
+        st = carry
+    else:
+        with tracer.span("carry"):
+            st = _Carry.from_fields(carry, static[0].device)
     partial = False
     while st.work > 0 and st.t < cfg.max_steps:
         t_stop = min(st.t + cfg.ckpt_period, cfg.max_steps)
-        st = dispatch(st, *static, t_stop)
+        st = dispatch(st, *static, t_stop, tracer=tracer)
         faults.check("engine.superstep", t=st.t)
         if on_segment is not None:
             on_segment(st)

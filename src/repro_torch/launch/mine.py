@@ -26,6 +26,10 @@ itemsets and --patterns-out exports the full ResultSet as TSV/JSON.
 samples the device superstep trace every N supersteps and adds its
 load-balance summary to the blob; --trace-out saves the host span timeline
 as Chrome-trace JSON and --metrics-out the session's Prometheus metrics.
+--profile-out runs the query under torch.profiler (the host, and the card
+where there is one) with the session's spans bridged into it, and writes
+one Chrome trace in which the spans sit beside the operators and kernels
+they launched, on the profiler's clock.
 
 Fault tolerance (DESIGN.md §11): --ckpt-period N runs every phase in
 segments of N supersteps, --ckpt-dir writes a frontier checkpoint at each
@@ -43,6 +47,7 @@ flags.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import sys
@@ -107,6 +112,10 @@ def main(argv=None):
                     help="write the host span timeline as Chrome-trace JSON")
     ap.add_argument("--metrics-out", default="",
                     help="write a Prometheus text-format metrics snapshot")
+    ap.add_argument("--profile-out", default="",
+                    help="profile the query with torch.profiler and write "
+                         "its Chrome trace, the session's spans beside the "
+                         "kernels")
     ap.add_argument("--ckpt-dir", default="",
                     help="write frontier checkpoints under this directory "
                          "(requires --ckpt-period)")
@@ -149,7 +158,7 @@ def main(argv=None):
         SignificantPatternQuery,
         TopKSignificantQuery,
     )
-    from repro_torch.obs import JsonlLogger
+    from repro_torch.obs import JsonlLogger, SpanTracer
     from repro_torch.results import score_planted
 
     if args.pipeline not in PIPELINES:
@@ -188,6 +197,7 @@ def main(argv=None):
             # dataset's bucket and the miner count
             stack_cap=args.stack_cap or None,
         ),
+        tracer=SpanTracer(torch_profiler=bool(args.profile_out)),
     )
     if args.query == "closed-frequent":
         query = ClosedFrequentQuery(min_sup=args.min_sup)
@@ -197,10 +207,16 @@ def main(argv=None):
         query = SignificantPatternQuery(
             alpha=args.alpha, statistic=args.stat, pipeline=args.pipeline
         )
+    prof = _profiler(session.device) if args.profile_out else None
     t0 = time.time()
-    report = session.run(ds, query,
-                         ckpt_dir=args.ckpt_dir or None,
-                         resume_from=args.resume or None)
+    with prof or contextlib.nullcontext():
+        report = session.run(ds, query,
+                             ckpt_dir=args.ckpt_dir or None,
+                             resume_from=args.resume or None)
+        if prof is not None and session.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(session.device)   # the last kernels in
     dt = time.time() - t0
     if any(p.resumed for p in report.phases):
         resumed = [p.mode for p in report.phases if p.resumed]
@@ -281,6 +297,21 @@ def main(argv=None):
         with open(args.metrics_out, "w") as f:
             f.write(session.metrics.expose_text())
         print(f"[out] wrote metrics snapshot to {args.metrics_out}")
+    if prof is not None:
+        prof.export_chrome_trace(args.profile_out)
+        print(f"[out] wrote the profile with the session's spans to "
+              f"{args.profile_out} (open in ui.perfetto.dev)")
+
+
+def _profiler(device):
+    """A `torch.profiler.profile` of the host, and of the card when the
+    session runs on one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@
               supersteps, decoded host-side into per-miner timelines and
               load-balance metrics.
   span.py     host span tracer — nested context-manager spans around
-              pack/compile/dispatch/postprocess/reconstruct, exported as
-              Chrome-trace (Perfetto) JSON, with an optional
+              each query, phase, superstep and reconstruction step and
+              each served request, kept in a bounded ring and exported
+              as Chrome-trace (Perfetto) JSON, with an optional
               torch.profiler bridge so host spans sit beside the kernels.
   metrics.py  metrics registry — counters/gauges/histograms with
               Prometheus text exposition, fed by MinerSession.
@@ -17,7 +18,7 @@
 
 from .log import JsonlLogger
 from .metrics import DEFAULT_LATENCY_BUCKETS, MetricsRegistry
-from .span import SpanTracer
+from .span import NULL_TRACER, SpanTracer
 from .trace import (
     DEFAULT_TRACE_CAP,
     N_FIELDS,
@@ -32,6 +33,7 @@ __all__ = [
     "DEFAULT_TRACE_CAP",
     "JsonlLogger",
     "MetricsRegistry",
+    "NULL_TRACER",
     "N_FIELDS",
     "SpanTracer",
     "SuperstepTrace",

@@ -18,13 +18,14 @@ import torch
 
 from repro_torch.core.bitmap import words_to_tensor
 from repro_torch.device import resolve_device
+from repro_torch.obs.span import NULL_TRACER
 
 __all__ = ["reconstruct_closures", "dedup_by_closure"]
 
 
 def reconstruct_closures(
     occ: np.ndarray, sup: np.ndarray, db_bits, chunk: int = 512,
-    device=None, impl: str = "auto",
+    device=None, impl: str = "auto", tracer=NULL_TRACER,
 ) -> list[tuple[int, ...]]:
     """[K, W] occurrence bitmaps + [K] supports -> K closure itemsets.
 
@@ -32,7 +33,11 @@ def reconstruct_closures(
     `device` (default: the card), or an int32 tensor, used where it lies.
     Records are counted against it `chunk` at a time, so the [chunk, M]
     output stays small.  `impl` is the support count's (`ops.resolve_impl`:
-    "auto" takes the kernel on the card).
+    "auto" takes the kernel on the card).  Each chunk records three spans
+    into `tracer`: `closure.count` (the count and the compare, queued on
+    the device), `closure.readback` (the [chunk, M] mask to the host,
+    waiting for the count; args `bytes`) and `closure.scan` (the host's
+    scan of the mask).
     """
     from repro_torch.kernels.support_count.ops import support_counts
 
@@ -51,13 +56,17 @@ def reconstruct_closures(
         db = words_to_tensor(np.asarray(db_bits), dev)
     for lo in range(0, k, chunk):
         hi = min(lo + chunk, k)
-        # blocks=None: the kernel's tile is chosen at each chunk's own shape
-        s = support_counts(words_to_tensor(occ[lo:hi], dev), db,
-                           impl=impl)  # [chunk, M]
-        want = torch.from_numpy(sup[lo:hi].astype(np.int64)).to(dev)
-        in_clo = (s == want[:, None]).cpu().numpy()
-        for r in range(hi - lo):
-            out.append(tuple(np.flatnonzero(in_clo[r]).tolist()))
+        with tracer.span("closure.count"):
+            # blocks=None: the kernel's tile is chosen at each chunk's own shape
+            s = support_counts(words_to_tensor(occ[lo:hi], dev), db,
+                               impl=impl)  # [chunk, M]
+            want = torch.from_numpy(sup[lo:hi].astype(np.int64)).to(dev)
+            mask = s == want[:, None]
+        with tracer.span("closure.readback", bytes=mask.numel()):
+            in_clo = mask.cpu().numpy()
+        with tracer.span("closure.scan"):
+            for r in range(hi - lo):
+                out.append(tuple(np.flatnonzero(in_clo[r]).tolist()))
     return out
 
 

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.core.bitmap import words_to_tensor
 from repro_torch.device import resolve_device
+from repro_torch.obs.span import NULL_TRACER
 from repro_torch.stats import get_statistic
 
 from .reconstruct import dedup_by_closure, reconstruct_closures
@@ -250,6 +251,7 @@ def build_result_set(
     device=None,
     impl: str = "auto",
     stream: ResultStream | None = None,
+    tracer=NULL_TRACER,
 ) -> ResultSet:
     """Emitted records -> deduped, exactly-(re)tested, sorted ResultSet.
 
@@ -263,6 +265,9 @@ def build_result_set(
     support count of closure reconstruction ("auto": the kernel on the card).
     `stream` delivers the top-`head_k` head to a callback mid-build (see
     `ResultStream`); the returned ResultSet is identical either way.
+    `tracer` records the reconstruction's `closure.*` spans
+    (`reconstruct_closures`), `dedup` and `score` (the float64 P/q, the
+    patterns and their sort).
     """
     occ = np.asarray(occ, dtype=np.uint32).reshape(-1, db_bits.shape[1])
     if isinstance(db_bits, torch.Tensor):
@@ -277,7 +282,7 @@ def build_result_set(
         patterns = _build_patterns_streaming(
             occ, sup, pos_sup, db_dev, n=n, n_pos=n_pos, k=k, delta=delta,
             filter_host=filter_host, statistic=statistic, stream=stream,
-            impl=impl,
+            impl=impl, tracer=tracer,
         )
         return ResultSet(
             patterns=patterns,
@@ -292,38 +297,41 @@ def build_result_set(
             statistic=statistic,
         )
 
-    closures = reconstruct_closures(occ, sup, db_dev, impl=impl)
-    closures, sup, pos_sup = dedup_by_closure(closures, sup, pos_sup)
+    closures = reconstruct_closures(occ, sup, db_dev, impl=impl, tracer=tracer)
+    with tracer.span("dedup"):
+        closures, sup, pos_sup = dedup_by_closure(closures, sup, pos_sup)
 
-    patterns = []
-    if len(closures) and statistic is None:
-        for i in range(len(closures)):
-            patterns.append(Pattern(
-                items=closures[i],
-                support=int(sup[i]),
-                pos_support=int(pos_sup[i]),
-                pvalue=float("nan"),
-                qvalue=float("nan"),
-            ))
-    elif len(closures):
-        pvals = get_statistic(statistic).pvalue(sup, pos_sup, n, n_pos)
-        keep = pvals <= delta if filter_host else np.ones(len(closures), bool)
-        for i in np.flatnonzero(keep):
-            p = float(pvals[i])
-            patterns.append(Pattern(
-                items=closures[i],
-                support=int(sup[i]),
-                pos_support=int(pos_sup[i]),
-                pvalue=p,
-                qvalue=min(1.0, p * k),
-            ))
+    with tracer.span("score"):
+        patterns = []
+        if len(closures) and statistic is None:
+            for i in range(len(closures)):
+                patterns.append(Pattern(
+                    items=closures[i],
+                    support=int(sup[i]),
+                    pos_support=int(pos_sup[i]),
+                    pvalue=float("nan"),
+                    qvalue=float("nan"),
+                ))
+        elif len(closures):
+            pvals = get_statistic(statistic).pvalue(sup, pos_sup, n, n_pos)
+            keep = pvals <= delta if filter_host else np.ones(len(closures), bool)
+            for i in np.flatnonzero(keep):
+                p = float(pvals[i])
+                patterns.append(Pattern(
+                    items=closures[i],
+                    support=int(sup[i]),
+                    pos_support=int(pos_sup[i]),
+                    pvalue=p,
+                    qvalue=min(1.0, p * k),
+                ))
 
-    # The root closed set (closure of the empty itemset) never rides the
-    # device buffers, so it only appears here if the caller appended its
-    # record to the inputs.  Under Fisher it never qualifies (its one-sided
-    # P-value is exactly 1 and delta = alpha/k < 1 always).
+        # The root closed set (closure of the empty itemset) never rides
+        # the device buffers, so it only appears here if the caller
+        # appended its record to the inputs.  Under Fisher it never
+        # qualifies (its one-sided P-value is exactly 1 and delta = alpha/k
+        # < 1 always).
 
-    patterns.sort(key=_sort_key(statistic))
+        patterns.sort(key=_sort_key(statistic))
     return ResultSet(
         patterns=patterns,
         n_transactions=n,
@@ -348,7 +356,7 @@ def _sort_key(statistic: str | None):
 
 def _build_patterns_streaming(
     occ, sup, pos_sup, db_dev, *, n, n_pos, k, delta, filter_host,
-    statistic, stream: ResultStream, impl: str,
+    statistic, stream: ResultStream, impl: str, tracer,
 ) -> list[Pattern]:
     """Reconstruct records in significance order, stream the head early.
 
@@ -364,20 +372,21 @@ def _build_patterns_streaming(
     """
     n_rec = len(sup)
     full_key = _sort_key(statistic)
-    if statistic is None:
-        pvals = None
-        idx = np.arange(n_rec)
-        order = idx[np.lexsort((idx, -sup))] if n_rec else idx
-        partial = lambda j: (-int(sup[j]),)                    # noqa: E731
-        partial_p = lambda p: (-p.support,)                    # noqa: E731
-    else:
-        pvals = (get_statistic(statistic).pvalue(sup, pos_sup, n, n_pos)
-                 if n_rec else np.zeros(0))
-        idx = np.flatnonzero(pvals <= delta) if filter_host else np.arange(n_rec)
-        order = (idx[np.lexsort((idx, -sup[idx], pvals[idx]))]
-                 if len(idx) else idx)
-        partial = lambda j: (float(pvals[j]), -int(sup[j]))    # noqa: E731
-        partial_p = lambda p: (p.pvalue, -p.support)           # noqa: E731
+    with tracer.span("score"):
+        if statistic is None:
+            pvals = None
+            idx = np.arange(n_rec)
+            order = idx[np.lexsort((idx, -sup))] if n_rec else idx
+            partial = lambda j: (-int(sup[j]),)                    # noqa: E731
+            partial_p = lambda p: (-p.support,)                    # noqa: E731
+        else:
+            pvals = (get_statistic(statistic).pvalue(sup, pos_sup, n, n_pos)
+                     if n_rec else np.zeros(0))
+            idx = np.flatnonzero(pvals <= delta) if filter_host else np.arange(n_rec)
+            order = (idx[np.lexsort((idx, -sup[idx], pvals[idx]))]
+                     if len(idx) else idx)
+            partial = lambda j: (float(pvals[j]), -int(sup[j]))    # noqa: E731
+            partial_p = lambda p: (p.pvalue, -p.support)           # noqa: E731
 
     seen: set[tuple[int, ...]] = set()
     patterns: list[Pattern] = []
@@ -386,30 +395,34 @@ def _build_patterns_streaming(
         sel = order[lo:lo + stream.chunk]
         # occ[sel] is a gather, so the chunk is a fresh array: its upload
         # starts on an allocation's 16-byte boundary, as the kernel needs
-        closures = reconstruct_closures(occ[sel], sup[sel], db_dev, impl=impl)
-        for j, c in zip(sel, closures):
-            if c in seen:
-                continue
-            seen.add(c)
-            if pvals is None:
-                p = q = float("nan")
-            else:
-                p = float(pvals[j])
-                q = min(1.0, p * k)
-            patterns.append(Pattern(
-                items=c, support=int(sup[j]), pos_support=int(pos_sup[j]),
-                pvalue=p, qvalue=q,
-            ))
+        closures = reconstruct_closures(occ[sel], sup[sel], db_dev, impl=impl,
+                                        tracer=tracer)
+        with tracer.span("dedup"):
+            for j, c in zip(sel, closures):
+                if c in seen:
+                    continue
+                seen.add(c)
+                if pvals is None:
+                    p = q = float("nan")
+                else:
+                    p = float(pvals[j])
+                    q = min(1.0, p * k)
+                patterns.append(Pattern(
+                    items=c, support=int(sup[j]), pos_support=int(pos_sup[j]),
+                    pvalue=p, qvalue=q,
+                ))
         if head_sent:
             continue
-        patterns.sort(key=full_key)
-        nxt = lo + stream.chunk
-        if nxt >= len(order):
-            head_sent = True   # everything reconstructed: the head is final
-        elif (len(patterns) >= stream.head_k
-              and partial(order[nxt]) > partial_p(patterns[stream.head_k - 1])):
-            head_sent = True
+        with tracer.span("score"):
+            patterns.sort(key=full_key)
+            nxt = lo + stream.chunk
+            if nxt >= len(order):
+                head_sent = True   # everything reconstructed: the head is final
+            elif (len(patterns) >= stream.head_k
+                  and partial(order[nxt]) > partial_p(patterns[stream.head_k - 1])):
+                head_sent = True
         if head_sent:
             stream.on_head(patterns[: stream.head_k])
-    patterns.sort(key=full_key)
+    with tracer.span("score"):
+        patterns.sort(key=full_key)
     return patterns

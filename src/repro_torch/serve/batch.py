@@ -34,6 +34,7 @@ from repro_torch.api.query import (
     SignificantPatternQuery,
     TopKSignificantQuery,
 )
+from repro_torch.obs.span import NULL_TRACER
 
 from .request import ServeRequest, ServeResult
 
@@ -138,12 +139,17 @@ def run_batch(worker, batch: list[ServeRequest], loop,
     (stop at a superstep boundary, outcome "partial" with a truncated
     report) and `ckpt_dir_for(request)` names where its frontier
     checkpoints go.
+
+    Each started request is one `serve.request` span of the worker's
+    session tracer (args `rid`, `worker`, `attempt`, `batch_index`), the
+    outermost on this thread: the query's own spans sit inside it.
     """
     from repro_torch.testing import faults
 
     stats = BatchStats()
     size = len(batch)
     capable = _ckpt_capable(worker)
+    tracer = getattr(worker.session, "tracer", None) or NULL_TRACER
     for i, req in enumerate(batch):
         now = time.perf_counter()
         if not req.try_start():
@@ -164,62 +170,66 @@ def run_batch(worker, batch: list[ServeRequest], loop,
                     on_result(req, result)
                 req.resolve(loop, result)
             continue
-        try:
-            faults.check("serve.attempt", rid=req.rid, worker=worker.wid)
-            kw = {}
-            if capable:
-                if req.deadline is not None:
-                    kw["should_stop"] = (
-                        lambda d=req.deadline: time.perf_counter() >= d)
-                ckpt_dir = (ckpt_dir_for(req)
-                            if ckpt_dir_for is not None else None)
-                if ckpt_dir:
-                    kw["ckpt_dir"] = ckpt_dir
-            with worker.device_scope():
-                report = worker.session.run(req.dataset, req.query,
-                                            stream=req.stream, **kw)
-        except Exception as exc:  # engine/query failure -> retry or fail
-            worker.record_failure()
-            end = time.perf_counter()
-            started = req.started
-            if on_failure is not None and on_failure(req, exc, worker):
-                # handed back to the scheduler: the future stays pending and
-                # the request is (or will be) queued again
-                stats.n_retried += 1
-                continue
-            req.finish("error")
-            result = ServeResult(
-                outcome="error",
-                reason=f"{type(exc).__name__}: {exc}",
-                queued_s=started - req.submitted,
-                service_s=end - started,
-                total_s=end - req.submitted,
-                session_id=worker.wid, batch_size=size, batch_index=i,
-                attempts=req.attempts,
-            )
-            stats.n_error += 1
-        else:
-            worker.record_success()
-            partial = bool(getattr(report, "partial", False))
-            req.finish("partial" if partial else "ok")
-            end = time.perf_counter()
-            result = ServeResult(
-                outcome="partial" if partial else "ok", report=report,
-                queued_s=req.started - req.submitted,
-                service_s=end - req.started,
-                total_s=end - req.submitted,
-                session_id=worker.wid, batch_size=size, batch_index=i,
-                attempts=req.attempts,
-                ckpt_path=getattr(report, "ckpt_path", None),
-            )
-            if partial:
-                stats.n_partial += 1
+        # the request's span, on this worker's thread: its device scope,
+        # the query, the result's packaging and its resolution
+        with tracer.span("serve.request", rid=req.rid, worker=worker.wid,
+                         attempt=req.attempts, batch_index=i):
+            try:
+                faults.check("serve.attempt", rid=req.rid, worker=worker.wid)
+                kw = {}
+                if capable:
+                    if req.deadline is not None:
+                        kw["should_stop"] = (
+                            lambda d=req.deadline: time.perf_counter() >= d)
+                    ckpt_dir = (ckpt_dir_for(req)
+                                if ckpt_dir_for is not None else None)
+                    if ckpt_dir:
+                        kw["ckpt_dir"] = ckpt_dir
+                with worker.device_scope():
+                    report = worker.session.run(req.dataset, req.query,
+                                                stream=req.stream, **kw)
+            except Exception as exc:  # engine/query failure -> retry or fail
+                worker.record_failure()
+                end = time.perf_counter()
+                started = req.started
+                if on_failure is not None and on_failure(req, exc, worker):
+                    # handed back to the scheduler: the future stays
+                    # pending and the request is (or will be) queued again
+                    stats.n_retried += 1
+                    continue
+                req.finish("error")
+                result = ServeResult(
+                    outcome="error",
+                    reason=f"{type(exc).__name__}: {exc}",
+                    queued_s=started - req.submitted,
+                    service_s=end - started,
+                    total_s=end - req.submitted,
+                    session_id=worker.wid, batch_size=size, batch_index=i,
+                    attempts=req.attempts,
+                )
+                stats.n_error += 1
             else:
-                stats.n_ok += 1
-            stats.n_cold += 1 if report.cold else 0
-            stats.service_s += result.service_s
-            worker.note_served(req.dataset)
-        if on_result is not None:
-            on_result(req, result)
-        req.resolve(loop, result)
+                worker.record_success()
+                partial = bool(getattr(report, "partial", False))
+                req.finish("partial" if partial else "ok")
+                end = time.perf_counter()
+                result = ServeResult(
+                    outcome="partial" if partial else "ok", report=report,
+                    queued_s=req.started - req.submitted,
+                    service_s=end - req.started,
+                    total_s=end - req.submitted,
+                    session_id=worker.wid, batch_size=size, batch_index=i,
+                    attempts=req.attempts,
+                    ckpt_path=getattr(report, "ckpt_path", None),
+                )
+                if partial:
+                    stats.n_partial += 1
+                else:
+                    stats.n_ok += 1
+                stats.n_cold += 1 if report.cold else 0
+                stats.service_s += result.service_s
+                worker.note_served(req.dataset)
+            if on_result is not None:
+                on_result(req, result)
+            req.resolve(loop, result)
     return stats

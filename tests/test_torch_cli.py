@@ -178,6 +178,25 @@ def test_port_launcher_queries_and_artifacts(query, tmp_path, capsys):
                                  else "chi2")
 
 
+def test_profile_out_puts_the_spans_beside_the_operators(tmp_path, capsys):
+    path = tmp_path / "profile.json"
+    tmine.main(PROBLEM + ["--device", "cpu", "--devices", "2", "--query",
+                          "closed-frequent", "--min-sup", "20",
+                          "--profile-out", str(path)])
+    assert f"wrote the profile with the session's spans to {path}" in (
+        capsys.readouterr().out)
+    events = json.load(open(path))["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    names = {e["name"] for e in spans}
+    assert {"query:ClosedFrequentQuery", "pack", "roots", "dispatch", "carry",
+            "superstep", "expand", "census.read", "outputs", "reconstruct",
+            "closure.readback", "closure.scan"} <= names
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    (dispatch,) = [e for e in spans if e["name"] == "dispatch"]
+    assert any(dispatch["ts"] <= o["ts"] <= dispatch["ts"] + dispatch["dur"]
+               for o in ops)
+
+
 #: the serving launcher's CI-sized run, at 4 miners per session
 SERVE_ARGS = ["--smoke", "--devices", "4", "--verbose"]
 #: the values of each --verbose query record both launchers must agree on
