@@ -829,6 +829,7 @@ def phase7(ds_a, session_a, rep_a, launched: set) -> dict:
         RuntimeConfig,
         SignificantPatternQuery,
     )
+    from repro_torch.core import engine
     from repro_torch.data.synthetic import paper_problem_packed
     from repro_torch.kernels.support_count import kernel
     from repro_torch.results import ResultStream
@@ -888,6 +889,9 @@ def phase7(ds_a, session_a, rep_a, launched: set) -> dict:
                                            name=sp.name)
             if ds.bucket != ds_a.bucket:
                 raise AssertionError(f"(7b) seed {seed}: bucket {ds.bucket}")
+            # a dataset's first deal counts the root's supports; count them
+            # here, so the direct runs and each fleet launch alike
+            engine.root_supports(ds.packed)
             work.append((ds, SignificantPatternQuery(
                 alpha=SERVE_ALPHAS[seed % len(SERVE_ALPHAS)], pipeline="fused23",
                 statistic="fisher")))
@@ -1429,9 +1433,10 @@ def main() -> int:
     t0 = time.perf_counter()
     # the engine's shapes as the session's shape buckets pad them: EXPAND of
     # the 1,191-item query (B = 16 P = 128), a full reconstruction chunk of
-    # it, and EXPAND at both full widths
+    # it, and EXPAND at both full widths; the root's supports (B = 1, a
+    # dataset's first deal) at 1,191 items and alz_rec_30
     bucket_shapes = [(128, 2048, 32), (512, 2048, 32), (128, 16384, 32),
-                     (128, 262144, 16)]
+                     (128, 262144, 16), (1, 2048, 32), (1, 262144, 16)]
     main_shapes = [(128, 1191, 22), (512, 1191, 22)]       # exact shapes
     # (1024, 11916, 22): as 11,914 items, but every row of S starts on a
     # 16-byte boundary

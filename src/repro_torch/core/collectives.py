@@ -60,10 +60,6 @@ class MinerGroup:
         self.calls = 0
         self.seconds = 0.0
 
-    def rows(self, x):
-        """This process's rows of a global [P, ...] array or tensor."""
-        return x[self.lo:self.hi]
-
     def _timed(self, fn):
         t0 = time.perf_counter()
         out = fn()

@@ -49,15 +49,16 @@ and the outputs (see `repro_torch.topo.bootstrap`).
 
 from __future__ import annotations
 
+import functools
 import warnings
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.support_count import autotune
-from repro_torch.kernels.support_count.ops import resolve_impl
+from repro_torch.kernels.support_count.ops import resolve_impl, support_counts_tiled
 from repro_torch.obs.span import NULL_TRACER
 from repro_torch.obs.trace import N_FIELDS, SuperstepTrace, decode_trace
 from repro_torch.stats import get_statistic
@@ -69,7 +70,6 @@ from .bitmap import (
     item_tiling,
     num_words,
     pack_db,
-    supports_np,
     tensor_to_words,
     words_to_tensor,
 )
@@ -208,9 +208,12 @@ class PackedProblem:
     """A transaction database packed once, padded to program dims, with its
     device copy.
 
-    The host numpy arrays are the JAX PackedProblem's (root deal, closure
-    reconstruction); `db_dev` [T, m_tile, W] and `pos_mask_dev` [W] hold
-    the same bits as int32 on `device`.  Padded items/words/positives are
+    The host numpy arrays are the JAX PackedProblem's (checkpoint
+    provenance, the root record); `db_dev` [T, m_tile, W], `pos_mask_dev`
+    [W] and `occ0_dev` [W] hold the same bits as int32 on `device`, where
+    the root deal and closure reconstruction count them.  `root_supports`
+    counts every item's support at the root once per kernel impl and
+    keeps it on the host (`_root_sup`).  Padded items/words/positives are
     zero bits, so results do not depend on the padding.
     """
 
@@ -227,6 +230,9 @@ class PackedProblem:
     device: torch.device
     db_dev: torch.Tensor       # [T, m_tile, w_pad] int32 on device
     pos_mask_dev: torch.Tensor  # [w_pad] int32 on device
+    occ0_dev: torch.Tensor      # [w_pad] int32 on device
+    # impl -> [m_pad] int32 root supports on the host (`root_supports`)
+    _root_sup: dict = field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
         if self.layout.m_pad != self.m_pad:
@@ -240,7 +246,7 @@ class PackedProblem:
 
     @property
     def db_bits(self) -> np.ndarray:
-        """[m_pad, w_pad] item-major view (host-side: root deal, closures)."""
+        """[m_pad, w_pad] item-major view (host-side)."""
         return self.layout.flat
 
     @property
@@ -275,6 +281,7 @@ def packed_from_numpy(
         has_labels=bool(has_labels), device=dev,
         db_dev=words_to_tensor(tiles, dev),
         pos_mask_dev=words_to_tensor(pos_mask, dev),
+        occ0_dev=words_to_tensor(occ0, dev),
     )
 
 
@@ -359,34 +366,98 @@ def pack_problem_from_bits(
     )
 
 
-def deal_roots(packed: PackedProblem, n_proc: int, stack_cap: int, min_sup: int = 1):
-    """Paper §4.5: expand the root on the host, deal depth-1 nodes round-robin
-    (item e to miner e mod P, in ascending item order).
+@dataclass(frozen=True, eq=False)
+class RootDeal:
+    """The depth-1 roots dealt to P miners, compact: one row per dealt
+    root, never the [P, CAP, W] stacks, which `_Carry` builds on the
+    device from these rows and the resident database.  Root e sits in
+    miner e mod P at `slot`, its rank there in ascending item order."""
 
-    Returns (init_occ [P,CAP,W] u32, init_meta [P,CAP,4] i32, init_sp [P] i32).
+    meta: np.ndarray        # [R, 4] int32 (e, clo_cum[e], s[e], 0), ascending e
+    miner: np.ndarray       # [R] int32
+    slot: np.ndarray        # [R] int32
+    sp: np.ndarray          # [P] int32 roots per miner
+    stack_cap: int
+    occ0: torch.Tensor      # [W] int32 root occurrence, on the device
+
+    @property
+    def n_proc(self) -> int:
+        return self.sp.shape[0]
+
+    @property
+    def n_roots(self) -> int:
+        return self.meta.shape[0]
+
+    def miners(self, lo: int, hi: int) -> "RootDeal":
+        """The roots of miners [lo, hi), renumbered from 0 (a process's
+        block of the global miner dim)."""
+        keep = (self.miner >= lo) & (self.miner < hi)
+        return replace(self, meta=self.meta[keep], miner=self.miner[keep] - lo,
+                       slot=self.slot[keep], sp=self.sp[lo:hi])
+
+
+def root_supports(packed: PackedProblem, impl: str = "auto") -> np.ndarray:
+    """[m_pad] int32: every item's support at the root (padded items 0).
+
+    One support count of `occ0_dev` against the resident database
+    (`ops.support_counts_tiled` with `impl`, resolved against the
+    problem's device: a B = 1 launch of the kernel on the card), read back
+    once and kept on the host for every later deal with that impl: the
+    root's expansion is the same for every query of a dataset.
     """
-    db_bits, occ0 = packed.db_bits, packed.occ0
-    s = supports_np(occ0, db_bits)            # padded items have s == 0
-    in_clo = s == packed.n
-    cand = np.flatnonzero((~in_clo) & (s >= max(1, min_sup)))
-    clo_cum = np.concatenate([[0], np.cumsum(in_clo)])  # clo_cum[e] = |clo ∩ [0,e)|
+    impl = resolve_impl(impl, packed.device)
+    s = packed._root_sup.get(impl)
+    if s is None:
+        s = support_counts_tiled(packed.occ0_dev[None], packed.db_dev,
+                                 impl=impl)[0].cpu().numpy()
+        s.flags.writeable = False
+        packed._root_sup[impl] = s
+    return s
 
-    init_occ = np.zeros((n_proc, stack_cap, packed.w_pad), dtype=np.uint32)
-    init_meta = np.zeros((n_proc, stack_cap, 4), dtype=np.int32)
-    init_sp = np.zeros(n_proc, dtype=np.int32)
-    for p in range(n_proc):
-        e = cand[cand % n_proc == p]
-        if len(e) > stack_cap:
-            raise ValueError(
-                f"stack_cap={stack_cap} too small for the depth-1 preprocess "
-                f"({len(e)} roots dealt to miner {p})"
-            )
-        init_occ[p, : len(e)] = occ0 & db_bits[e]
-        init_meta[p, : len(e)] = np.stack(
-            [e, clo_cum[e], s[e], np.zeros_like(e)], axis=1
+
+def deal_roots(packed: PackedProblem, n_proc: int, stack_cap: int,
+               min_sup: int = 1, *, impl: str = "auto") -> RootDeal:
+    """Paper §4.5: expand the root, deal depth-1 nodes round-robin (item e
+    to miner e mod P, in ascending item order).
+
+    The root's supports are `root_supports(packed, impl)`; the deal is
+    host work on the dealt items and the closure items alone.
+    """
+    s = root_supports(packed, impl)
+    # s <= n, so s >= max(1, min_sup) keeps the dealt roots (s < n) and,
+    # where any can be dealt, the closure items (s == n) that number them;
+    # padded items have s == 0
+    items = np.flatnonzero(s >= max(1, min_sup))
+    sup = s[items]
+    clo = sup == packed.n
+    e, sup = items[~clo], sup[~clo]
+    miner = e % n_proc
+    sp = np.bincount(miner, minlength=n_proc)
+    over = np.flatnonzero(sp > stack_cap)
+    if over.size:
+        raise ValueError(
+            f"stack_cap={stack_cap} too small for the depth-1 preprocess "
+            f"({sp[over[0]]} roots dealt to miner {over[0]})"
         )
-        init_sp[p] = len(e)
-    return init_occ, init_meta, init_sp
+    # slot: the rank among the miner's roots (e ascends, so a stable sort
+    # by miner keeps each miner's roots in item order)
+    by_miner = np.argsort(miner, kind="stable")
+    slot = np.empty_like(e)
+    slot[by_miner] = np.arange(e.size) - np.repeat(np.cumsum(sp) - sp, sp)
+    clo_cum = np.searchsorted(items[clo], e)   # |clo ∩ [0, e)|
+    meta = np.stack([e, clo_cum, sup, np.zeros_like(e)], axis=1)
+    i32 = np.int32
+    return RootDeal(meta=meta.astype(i32), miner=miner.astype(i32),
+                    slot=slot.astype(i32), sp=sp.astype(i32),
+                    stack_cap=int(stack_cap), occ0=packed.occ0_dev)
+
+
+def carry_dims(n: int, n_pos: int, mode: str) -> dict[str, int]:
+    """The carry's histogram widths for program dims n / n_pos: `nb`, the
+    lamp1 snapshot `snb` and the count2d table `nb2`."""
+    nb = n + 2
+    return dict(nb=nb, snb=nb if mode == "lamp1" else 1,
+                nb2=(n + 1) * (n_pos + 1) if mode == "count2d" else 1)
 
 
 class _Carry:
@@ -396,23 +467,32 @@ class _Carry:
     once — they are uniform across miners, as in the JAX engine — and the
     superstep counter `t` and the boundary census `work` as host ints."""
 
-    def __init__(self, *, init_occ, init_meta, init_sp, lam0, nb, snb, nb2,
+    def __init__(self, *, deal: RootDeal, db_tiles, lam0, nb, snb, nb2,
                  out_cap, trace_cap, device):
-        P, _, w = init_occ.shape
+        P, R, cap = deal.n_proc, deal.n_roots, deal.stack_cap
+        w = db_tiles.shape[-1]
         i64 = torch.int64
-        spill = torch.zeros((P, 1, w), dtype=torch.int32, device=device)
-        self.occ_stack = torch.cat([words_to_tensor(init_occ, device), spill], dim=1)
-        self.meta = torch.cat(
-            [torch.from_numpy(np.ascontiguousarray(init_meta)).to(device),
-             torch.zeros((P, 1, 4), dtype=torch.int32, device=device)], dim=1,
-        )
-        self.sp = torch.from_numpy(np.asarray(init_sp, np.int64)).to(device)
+        # the stacks (with their spill rows) are zeroed on the device; one
+        # upload brings the dealt rows' meta, miner and slot and the counts,
+        # and each dealt root's occurrence is gathered from the database
+        host = np.concatenate([deal.meta, deal.miner[:, None], deal.slot[:, None]],
+                              axis=1)
+        up = torch.from_numpy(np.concatenate([host.ravel(), deal.sp])).to(device)
+        self.h2d_bytes = up.nbytes
+        rows = up[: 6 * R].view(R, 6)
+        place = rows[:, 4].long() * (cap + 1) + rows[:, 5]
+        self.occ_stack = torch.zeros((P, cap + 1, w), dtype=torch.int32, device=device)
+        self.occ_stack.view(-1, w).index_copy_(
+            0, place, db_tiles.reshape(-1, w).index_select(0, rows[:, 0]) & deal.occ0)
+        self.meta = torch.zeros((P, cap + 1, 4), dtype=torch.int32, device=device)
+        self.meta.view(-1, 4).index_copy_(0, place, rows[:, :4])
+        self.sp = up[6 * R:].long()
         self.head = torch.zeros(P, dtype=i64, device=device)
         self.hist = torch.zeros((P, nb), dtype=i64, device=device)
         self.hist_snap = torch.zeros((P, snb), dtype=i64, device=device)
         self.g_hist_acc = torch.zeros(snb, dtype=i64, device=device)
         self.hist2d = torch.zeros((P, nb2), dtype=i64, device=device)
-        self.lam = torch.tensor(int(lam0), dtype=i64, device=device)
+        self.lam = torch.full((), int(lam0), dtype=i64, device=device)
         self.t = 0
         self.stats = torch.zeros((P, _NSTAT), dtype=i64, device=device)
         self.out_occ = torch.zeros((P, out_cap + 1, w), dtype=torch.int32, device=device)
@@ -423,7 +503,7 @@ class _Carry:
         self.trace = torch.zeros((P, max(trace_cap, 1), N_FIELDS), dtype=torch.int32,
                                  device=device)
         # miners with non-empty stacks: the census the loop condition reads
-        self.work = int((np.asarray(init_sp) > 0).sum())
+        self.work = int((deal.sp > 0).sum())
 
     def to_fields(self, names=CARRY_FIELDS) -> dict[str, np.ndarray]:
         """The JAX package's host carry dict (leaves `names`): spill rows
@@ -462,27 +542,34 @@ class _Carry:
         dict (CARRY_FIELDS), written by either package."""
         st = cls.__new__(cls)
         P, _, w = d["occ_stack"].shape
+        st.h2d_bytes = 0
+
+        def up(a, dtype):   # words (uint32) go up as int32 of the same bits
+            a = np.ascontiguousarray(a, dtype)
+            t = torch.from_numpy(a.view(np.int32) if dtype == np.uint32 else a)
+            st.h2d_bytes += t.nbytes
+            return t.to(device)
 
         def i64(a):
-            return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+            return up(a, np.int64)
+
+        def i32(a):
+            return up(a, np.int32)
 
         def with_spill(x, cols):
             return torch.cat([x, torch.zeros((P, 1, cols), dtype=torch.int32,
                                              device=device)], dim=1)
 
-        def i32(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-
-        st.occ_stack = with_spill(words_to_tensor(d["occ_stack"], device), w)
+        st.occ_stack = with_spill(up(d["occ_stack"], np.uint32), w)
         st.meta = with_spill(i32(d["meta"]), 4)
         st.sp, st.head = i64(d["sp"]), i64(d["head"])
         st.hist, st.hist_snap = i64(d["hist"]), i64(d["hist_snap"])
         st.g_hist_acc = i64(d["g_hist_acc"][0])
         st.hist2d = i64(d["hist2d"])
-        st.lam = torch.tensor(int(d["lam"][0]), dtype=torch.int64, device=device)
+        st.lam = torch.full((), int(d["lam"][0]), dtype=torch.int64, device=device)
         st.t = int(d["t"][0])
         st.stats = i64(d["stats"])
-        st.out_occ = with_spill(words_to_tensor(d["out_occ"], device), w)
+        st.out_occ = with_spill(up(d["out_occ"], np.uint32), w)
         st.out_meta = with_spill(i32(d["out_meta"]), 3)
         st.out_ptr, st.n_sig = i64(d["out_ptr"]), i64(d["n_sig"])
         st.trace = i32(d["trace"])
@@ -512,16 +599,17 @@ def build_mine_step(
 
     Either program takes a keyword `tracer` (`obs.SpanTracer`; default
     `NULL_TRACER`) and records into it, beneath the caller's spans: the
-    classic program's `carry` (the carry allocated and the dealt stacks
-    uploaded) and `outputs` (read back to the host), and in both one
+    classic program's `carry` (the carry allocated and the dealt roots
+    placed; arg `bytes`, what it uploaded) and `outputs` (read back to
+    the host), and in both one
     `superstep` span per iteration (args `t`, and `fired` where stealing is
     on) holding `expand`, `steal`, `global` and `census.read`, the host's
     one wait on the device a superstep.
 
     `group` (a `core.collectives.MinerGroup`, classic program only) runs
     this process's block of the schedule's P miners: the program then
-    takes that block's rows of the dealt roots (`topo.bootstrap.
-    local_args`) and returns its own rows and sums, which
+    takes that block's dealt roots (`topo.bootstrap.local_args`) and
+    returns its own rows and sums, which
     `topo.bootstrap.fetch_outputs` gathers.  The loop reads the global
     census, so every process runs the same supersteps.
     """
@@ -534,9 +622,7 @@ def build_mine_step(
             "is set"
         )
     device = torch.device(device)
-    NB = n + 2
-    NB2 = (n + 1) * (n_pos + 1) if mode == "count2d" else 1
-    SNB = NB if mode == "lamp1" else 1
+    dims = carry_dims(n, n_pos, mode)
     n_proc = schedule.n_proc
     if group is not None and (cfg.ckpt_period > 0 or group.n_miners != n_proc):
         raise ValueError(
@@ -627,16 +713,17 @@ def build_mine_step(
                     step_args["fired"] = n_hungry_host > 0
         return st
 
-    def program(init_occ, init_meta, init_sp, db_tiles, pos_mask, thr, lam0,
-                delta, n_act, npos_act, *, tracer=NULL_TRACER):
-        with tracer.span("carry"):
-            st = _Carry(init_occ=init_occ, init_meta=init_meta, init_sp=init_sp,
-                        lam0=lam0, nb=NB, snb=SNB, nb2=NB2, out_cap=cfg.out_cap,
-                        trace_cap=tcap, device=device)
+    def program(deal, db_tiles, pos_mask, thr, lam0, delta, n_act, npos_act, *,
+                tracer=NULL_TRACER):
+        with tracer.span("carry") as carry_args:
+            st = _Carry(deal=deal, db_tiles=db_tiles, lam0=lam0, **dims,
+                        out_cap=cfg.out_cap, trace_cap=tcap, device=device)
             if group is not None:  # the census over every process's miners
                 st.work = group.sum_int(st.work)
             delta_t = torch.tensor(delta, dtype=torch.float32, device=device)
             thr_t = _thr_tensor(thr, device)
+            if carry_args is not None:
+                carry_args["bytes"] = st.h2d_bytes + delta_t.nbytes + thr_t.nbytes
         run_to(st, cfg.max_steps, db_tiles, pos_mask, thr_t, delta_t, n_act,
                npos_act, tracer)
         # one exact full-histogram sum at termination
@@ -680,67 +767,24 @@ def make_phase_args(
 ):
     """Build the program argument tuple (and the postprocess context).
 
-    Returns (args, ctx) with ctx = dict(thr, start_sup) for postprocess.
-    The root deal is the `roots` span of `tracer`.
+    Returns (args, ctx) with ctx = dict(thr, start_sup) for postprocess;
+    args[0] is the `RootDeal`.  The root deal is the `roots` span of
+    `tracer` (arg `dealt`, the roots dealt).
     """
     start_sup = min_sup if mode != "lamp1" else 1
-    with tracer.span("roots"):
-        init_occ, init_meta, init_sp = deal_roots(packed, n_proc, stack_cap,
-                                                  start_sup)
+    with tracer.span("roots") as roots_args:
+        deal = deal_roots(packed, n_proc, stack_cap, start_sup, impl=cfg.kernel_impl)
+        if roots_args is not None:
+            roots_args["dealt"] = deal.n_roots
     thr = _thresholds_int(packed.n, packed.n_pos, alpha, statistic)
     thr_pad = np.full(packed.n_pad + 2, INT_MAX, dtype=np.int32)
     thr_pad[: thr.shape[0]] = thr
     args = (
-        init_occ, init_meta, init_sp,
-        packed.db_dev, packed.pos_mask_dev, thr_pad,
+        deal, packed.db_dev, packed.pos_mask_dev, thr_pad,
         int(start_sup), float(np.float32(delta)),
         int(packed.n), int(packed.n_pos),
     )
     return args, dict(thr=thr_pad, start_sup=start_sup)
-
-
-def init_carry(
-    packed: PackedProblem,
-    *,
-    n_proc: int,
-    cfg: EngineConfig,
-    mode: str,
-    init_occ: np.ndarray,
-    init_meta: np.ndarray,
-    init_sp: np.ndarray,
-    start_sup: int,
-) -> dict[str, np.ndarray]:
-    """Host-side initial BSP carry for the segmented program (the JAX
-    package's `init_carry`, leaf for leaf).
-
-    A dict keyed by CARRY_FIELDS, every leaf a global [P, ...] numpy array
-    (per-miner scalars as [P] vectors), holding exactly what the classic
-    program starts its loop from, including the boundary census `work`.
-    """
-    NB = packed.n_pad + 2
-    SNB = NB if mode == "lamp1" else 1
-    NB2 = (packed.n_pad + 1) * (packed.npos_pad + 1) if mode == "count2d" else 1
-    w = init_occ.shape[-1]
-    i32, P_ = np.int32, n_proc
-    return {
-        "occ_stack": np.ascontiguousarray(init_occ),
-        "meta": np.ascontiguousarray(init_meta),
-        "sp": np.ascontiguousarray(init_sp),
-        "head": np.zeros(P_, i32),
-        "hist": np.zeros((P_, NB), i32),
-        "hist_snap": np.zeros((P_, SNB), i32),
-        "g_hist_acc": np.zeros((P_, SNB), i32),
-        "hist2d": np.zeros((P_, NB2), i32),
-        "lam": np.full(P_, start_sup, i32),
-        "t": np.zeros(P_, i32),
-        "stats": np.zeros((P_, _NSTAT), i32),
-        "out_occ": np.zeros((P_, cfg.out_cap, w), np.uint32),
-        "out_meta": np.zeros((P_, cfg.out_cap, 3), i32),
-        "out_ptr": np.zeros(P_, i32),
-        "n_sig": np.zeros(P_, i32),
-        "trace": np.zeros((P_, max(cfg.trace_cap, 1), N_FIELDS), i32),
-        "work": np.full(P_, int((np.asarray(init_sp) > 0).sum()), i32),
-    }
 
 
 def make_program_args(
@@ -759,9 +803,11 @@ def make_program_args(
     resolved: its stack_cap is an int).
 
     ckpt_period == 0: identical to `make_phase_args`.  ckpt_period > 0:
-    ctx gains `carry0` (the initial host carry dict) and `static` (the
-    operands `run_segments` passes every segment: db_tiles, pos_mask, thr,
-    delta, n_act, npos_act — lam0 rides the carry instead).
+    ctx gains `carry0`, which builds the starting `_Carry` when called
+    (the classic program's own, whose `to_fields()` is the JAX package's
+    `init_carry`), and `static` (the operands `run_segments` passes every
+    segment: db_tiles, pos_mask, thr, delta, n_act, npos_act — lam0 rides
+    the carry instead).
     """
     args, ctx = make_phase_args(
         packed, n_proc=n_proc, cfg=cfg, stack_cap=cfg.stack_cap, mode=mode,
@@ -770,12 +816,12 @@ def make_program_args(
     )
     if cfg.ckpt_period <= 0:
         return args, ctx
-    carry0 = init_carry(
-        packed, n_proc=n_proc, cfg=cfg, mode=mode,
-        init_occ=args[0], init_meta=args[1], init_sp=args[2],
-        start_sup=ctx["start_sup"],
+    carry0 = functools.partial(
+        _Carry, deal=args[0], db_tiles=packed.db_dev, lam0=ctx["start_sup"],
+        **carry_dims(packed.n_pad, packed.npos_pad, mode), out_cap=cfg.out_cap,
+        trace_cap=cfg.trace_cap, device=packed.device,
     )
-    static = args[3:6] + args[7:10]
+    static = args[1:4] + args[5:8]
     return args, dict(ctx, carry0=carry0, static=static)
 
 
@@ -791,9 +837,10 @@ def run_segments(
 ):
     """Host loop driving the segmented program to frontier exhaustion.
 
-    `carry` is a host carry dict (CARRY_FIELDS: `init_carry`, or a restored
-    frontier), moved once to the device of `static`'s database, or a
-    `_Carry` already there.  Each iteration runs one ckpt_period-superstep
+    `carry` is a host carry dict (CARRY_FIELDS: a restored frontier),
+    moved once to the device of `static`'s database, or `make_program_args`'
+    `carry0`, called to build the starting carry there.  Each iteration
+    runs one ckpt_period-superstep
     segment, fires the engine.superstep fault point, then hands the
     device carry to `on_segment` (the checkpoint writer, which pulls it to
     the host with `to_fields()`) — in that order, so an injected death
@@ -802,17 +849,18 @@ def run_segments(
     frontier is undrained: a cooperative stop always has at least one
     segment of progress behind it.  Between segments the carry stays on
     the device; the loop reads only its host ints `t` and `work`.  The
-    move is the `carry` span of `tracer`, which each segment gets too.
+    move or build is the `carry` span of `tracer` (arg `bytes`, what it
+    uploaded), which each segment gets too.
 
     Returns (carry, partial), the carry a `_Carry`.
     """
     from repro_torch.testing import faults
 
-    if isinstance(carry, _Carry):
-        st = carry
-    else:
-        with tracer.span("carry"):
-            st = _Carry.from_fields(carry, static[0].device)
+    with tracer.span("carry") as carry_args:
+        st = (_Carry.from_fields(carry, static[0].device) if isinstance(carry, dict)
+              else carry())
+        if carry_args is not None:
+            carry_args["bytes"] = st.h2d_bytes
     partial = False
     while st.work > 0 and st.t < cfg.max_steps:
         t_stop = min(st.t + cfg.ckpt_period, cfg.max_steps)

@@ -8,10 +8,10 @@ Three concerns:
    NCCL: the collectives stage through host tensors
    (core/collectives.py), and two ranks on one card cannot share NCCL.
 
-2. **Marshalling** — the engine's host preprocessing is deterministic
-   numpy: every process derives the *identical* full argument tuple from
-   the same dataset, and `local_args` keeps this process's rows of the
-   dealt roots and stacks (the JAX `globalize_args`).  `fetch_outputs`
+2. **Marshalling** — the engine's root deal is deterministic integer
+   work: every process derives the *identical* full argument tuple from
+   the same dataset, and `local_args` keeps the roots dealt to this
+   process's miners (the JAX `globalize_args`).  `fetch_outputs`
    turns the program's per-process outputs back into the full ones on
    every process — all-gathered per-miner rows, all-reduced sums — so the
    single-process postprocess (and the ResultSet) runs unchanged and
@@ -69,14 +69,12 @@ def init_distributed(coordinator_address: str, num_processes: int,
 # ----------------------------------------------------------- marshalling
 def local_args(args, group):
     """The classic program's argument tuple (`engine.make_phase_args`) with
-    the dealt roots and stacks cut to this process's miners; everything
-    else (the database, thresholds, scalars) is shared.  No group: the
-    tuple unchanged."""
+    the root deal cut to this process's miners, renumbered to its local
+    rows; everything else (the database, thresholds, scalars) is shared.
+    No group: the tuple unchanged."""
     if group is None:
         return tuple(args)
-    init_occ, init_meta, init_sp = args[:3]
-    return (group.rows(init_occ), group.rows(init_meta),
-            group.rows(init_sp)) + tuple(args[3:])
+    return (args[0].miners(group.lo, group.hi),) + tuple(args[1:])
 
 
 #: what each entry of the classic program's raw output is across

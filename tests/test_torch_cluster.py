@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.api as tapi  # noqa: E402
+from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.collectives import MinerGroup, process_group  # noqa: E402
 from repro_torch.topo import Topology, bootstrap  # noqa: E402
 from repro_torch.topo.worker import WORKER  # noqa: E402
@@ -142,18 +143,53 @@ def test_single_process_has_no_group():
     assert bootstrap.local_args(args, None) == args
 
 
+def _deal_args(n_miners):
+    """The classic program's arguments for DATA (the root deal first) and
+    the packed problem."""
+    ds = tapi.Dataset.from_dense(*_data(), name="topo", device="cpu")
+    cfg = engine.EngineConfig(**RUNTIME)
+    args, _ = engine.make_phase_args(
+        ds.packed, n_proc=n_miners, cfg=cfg, stack_cap=cfg.stack_cap,
+        mode="count", alpha=0.05, min_sup=2, delta=0.0)
+    return args, ds.packed
+
+
+def _stacks(deal, packed):
+    carry = engine._Carry(deal=deal, db_tiles=packed.db_dev, lam0=2,
+                          **engine.carry_dims(packed.n_pad, packed.npos_pad, "count"),
+                          out_cap=4, trace_cap=0, device=packed.device)
+    return carry.to_fields(("occ_stack", "meta", "sp"))
+
+
 def test_miner_group_blocks():
     g = MinerGroup(8, rank=1, world=2)
     assert (g.n_local, g.lo, g.hi) == (4, 4, 8)
-    assert g.rows(np.arange(8)).tolist() == [4, 5, 6, 7]
-    args = (np.arange(16).reshape(8, 2), np.arange(8) * 10, np.arange(8), "db", 3)
+    args, _ = _deal_args(8)
     local = bootstrap.local_args(args, g)
-    assert local[0].tolist() == [[8, 9], [10, 11], [12, 13], [14, 15]]
-    assert local[1].tolist() == [40, 50, 60, 70] and local[3:] == ("db", 3)
+    deal = local[0]
+    assert deal.n_proc == 4 and deal.sp.tolist() == args[0].sp[4:].tolist()
+    assert sorted(set(deal.meta[:, 0] % 8)) == [4, 5, 6, 7]
+    assert deal.miner.tolist() == (deal.meta[:, 0] % 8 - 4).tolist()
+    assert local[1:] == args[1:]
     with pytest.raises(ValueError, match="split evenly"):
         MinerGroup(6, rank=0, world=4)
     with pytest.raises(ValueError):
         MinerGroup(8, rank=2, world=2)
+
+
+@pytest.mark.parametrize("world", [2, 4, 8])
+def test_local_deal_gives_the_rows_of_the_global_stacks(world):
+    """Each process's stacks, built from its block of the compact deal,
+    are its miners' rows [lo, hi) of the global [P, CAP, W] stacks."""
+    args, packed = _deal_args(8)
+    whole = _stacks(args[0], packed)
+    assert whole["sp"].sum() == args[0].n_roots > 0
+    for rank in range(world):
+        g = MinerGroup(8, rank=rank, world=world)
+        local = _stacks(bootstrap.local_args(args, g)[0], packed)
+        for key in ("occ_stack", "meta", "sp"):
+            np.testing.assert_array_equal(local[key], whole[key][g.lo:g.hi],
+                                          err_msg=f"{key} rank {rank}")
 
 
 def _harness(tmp_path, body):

@@ -19,6 +19,7 @@ import json
 import os
 import subprocess
 import sys
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from repro.core import engine as jeng  # noqa: E402
 from repro.core.lifeline import build_schedule as jax_build_schedule  # noqa: E402
 from repro.data.synthetic import SyntheticSpec, generate  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
+from repro_torch.core.bitmap import supports_np  # noqa: E402
 from repro_torch.core.lifeline import build_schedule  # noqa: E402
 from repro_torch.stats import fisher_pvalue  # noqa: E402
 from test_torch_api import gate_rtol  # noqa: E402
@@ -123,8 +125,8 @@ def test_resume_and_emit_overflow_paths():
 
 
 def test_pack_and_deal_match_jax():
-    """Packing with program padding, the root deal and the Tarone table are
-    the JAX package's, array for array."""
+    """Packing with program padding and the Tarone table are the JAX
+    package's, array for array (the deal: the tests below)."""
     db, labels = small_problem(3, n_items=70, n_transactions=50)
     jp = jeng.pack_problem(db, labels, n_pad=64, npos_pad=32, m_pad=96, m_tile=32)
     tp = teng.pack_problem(db, labels, n_pad=64, npos_pad=32, m_pad=96, m_tile=32,
@@ -132,17 +134,126 @@ def test_pack_and_deal_match_jax():
     np.testing.assert_array_equal(tp.layout.tiles, jp.layout.tiles)
     np.testing.assert_array_equal(tp.pos_mask, jp.pos_mask)
     np.testing.assert_array_equal(tp.occ0, jp.occ0)
+    np.testing.assert_array_equal(teng.tensor_to_words(tp.occ0_dev), jp.occ0)
     for f in ("n", "n_pos", "m", "n_pad", "npos_pad", "m_pad", "has_labels"):
         assert getattr(tp, f) == getattr(jp, f), f
     assert tp.db_dev.shape == jp.layout.tiles.shape
-    for n_proc in (1, 3):
-        want = jeng.deal_roots(jp, n_proc, jeng.EngineConfig(stack_cap=64), 2)
-        got = teng.deal_roots(tp, n_proc, 64, 2)
-        for x, y in zip(want, got):
-            np.testing.assert_array_equal(x, y)
     np.testing.assert_array_equal(
         teng._thresholds_int(50, 17, 0.05), jeng._thresholds_int(50, 17, 0.05)
     )
+
+
+def deal_problem():
+    """70 items over 50 transactions, padded to (64, 32, 96): three items
+    in every transaction (the root's closure), the rest random."""
+    db, labels = small_problem(3, n_items=70, n_transactions=50)
+    db[:, [4, 31, 62]] = True
+    jp = jeng.pack_problem(db, labels, n_pad=64, npos_pad=32, m_pad=96, m_tile=32)
+    return jp, port_packed(jp)
+
+
+def dense_start(deal, tp, **kw):
+    """The stacks `_Carry` builds from a deal, as the JAX carry's leaves."""
+    carry = teng._Carry(deal=deal, db_tiles=tp.db_dev, lam0=1,
+                        **teng.carry_dims(tp.n_pad, tp.npos_pad, "count"),
+                        out_cap=4, trace_cap=0, device=tp.device, **kw)
+    return carry.to_fields(("occ_stack", "meta", "sp"))
+
+
+@pytest.mark.parametrize("min_sup", [1, 2, "none"])
+@pytest.mark.parametrize("n_proc", [1, 3, 8])
+def test_deal_on_device_matches_jax(n_proc, min_sup):
+    """The stacks the carry builds from the compact deal are the JAX
+    package's `deal_roots`, bit for bit: at min_sup 1 (lamp1's deal of
+    every item), at 2, and at a min_sup that deals nothing."""
+    jp, tp = deal_problem()
+    min_sup = jp.n if min_sup == "none" else min_sup
+    deal = teng.deal_roots(tp, n_proc, 96, min_sup)
+    want = jeng.deal_roots(jp, n_proc, jeng.EngineConfig(stack_cap=96), min_sup)
+    got = dense_start(deal, tp)
+    for key, x in zip(("occ_stack", "meta", "sp"), want):
+        assert got[key].dtype == x.dtype, key
+        np.testing.assert_array_equal(got[key], x, err_msg=key)
+    assert deal.n_roots == int(want[2].sum())
+    assert (deal.n_roots == 0) == (min_sup == jp.n)
+    assert min_sup == jp.n or deal.meta[:, 1].max() == 3  # the closure counts
+
+
+def test_deal_overflow_raises():
+    """A miner dealt more roots than its stack holds: the same ValueError
+    as the host deal raised, naming the first such miner and its roots."""
+    jp, tp = deal_problem()
+    s = supports_np(jp.occ0, jp.db_bits)
+    roots = np.flatnonzero((s != jp.n) & (s >= 2))
+    first = roots[roots % 3 == 0].size
+    with pytest.raises(ValueError, match=(
+            rf"^stack_cap=4 too small for the depth-1 preprocess "
+            rf"\({first} roots dealt to miner 0\)$")):
+        teng.deal_roots(tp, 3, 4, 2)
+
+
+def test_root_supports_counted_once_with_the_phase_impl(monkeypatch):
+    """The root's supports are counted at a problem's first deal, with the
+    kernel impl the phase resolved, and kept for every later deal; they
+    are every item's support at the root.  An impl the device cannot run
+    is refused by the count, not silently replaced."""
+    jp, tp = deal_problem()
+    calls = []
+    count = teng.support_counts_tiled
+
+    def counted(occ, db, *, impl, blocks=None):
+        calls.append((tuple(occ.shape), impl))
+        return count(occ, db, impl=impl, blocks=blocks)
+
+    monkeypatch.setattr(teng, "support_counts_tiled", counted)
+    kw = dict(n_proc=3, stack_cap=96, mode="count", alpha=0.05, delta=0.0)
+    for min_sup in (2, 5):
+        teng.make_phase_args(tp, cfg=teng.EngineConfig(kernel_impl="ref"),
+                             min_sup=min_sup, **kw)
+    assert calls == [((1, tp.w_pad), "ref")]
+    np.testing.assert_array_equal(teng.root_supports(tp, "ref"),
+                                  supports_np(jp.occ0, jp.db_bits))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        teng.make_phase_args(tp, cfg=teng.EngineConfig(kernel_impl="cuda"),
+                             min_sup=2, **kw)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("mode", ["lamp1", "count2d"])
+def test_segmented_start_carry_equals_classic_and_jax(mode, monkeypatch):
+    """The segmented program's starting carry (`make_program_args`' carry0)
+    is the classic program's, leaf for leaf, and both are the JAX
+    package's `init_carry` under `to_fields()`: the checkpoint format."""
+    jp, tp = deal_problem()
+    P, trace = 3, dict(trace_period=2, trace_cap=5)
+    cfg = teng.EngineConfig(**KW, **trace, max_steps=0)
+    kw = dict(n_proc=P, mode=mode, alpha=0.05, min_sup=2, delta=1e-3)
+    started = []
+
+    class Seen(teng._Carry):
+        def __init__(self, **k):
+            super().__init__(**k)
+            started.append(self.to_fields())
+
+    monkeypatch.setattr(teng, "_Carry", Seen)
+    args, ctx = teng.make_program_args(tp, cfg=cfg, **kw)
+    teng.build_mine_step(
+        n=tp.n_pad, n_pos=tp.npos_pad, m=tp.m_pad, cfg=cfg, stack_cap=cfg.stack_cap,
+        schedule=teng.make_schedule(cfg, P), mode=mode, device="cpu",
+    )(*args)
+    (classic,) = started
+    _, ctx = teng.make_program_args(tp, cfg=replace(cfg, ckpt_period=4), **kw)
+    segmented = ctx["carry0"]().to_fields()
+    jcfg = jeng.EngineConfig(**KW, **trace)
+    start_sup = ctx["start_sup"]
+    init = jeng.deal_roots(jp, P, jcfg, start_sup)
+    want = jeng.init_carry(jp, n_proc=P, cfg=jcfg, mode=mode, init_occ=init[0],
+                           init_meta=init[1], init_sp=init[2], start_sup=start_sup)
+    assert list(classic) == list(segmented) == list(teng.CARRY_FIELDS)
+    for key in teng.CARRY_FIELDS:
+        for got in (classic, segmented):
+            assert got[key].dtype == want[key].dtype, key
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_unported_options_raise():

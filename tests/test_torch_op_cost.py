@@ -228,9 +228,10 @@ def _stub_cuda(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["lamp1", "count2d"])
 def test_support_count_item_same_under_ref_and_cuda(mode, monkeypatch):
-    """One item per superstep, (M·W + B·W + B·M)·4 bytes and 2·B·M·32W bit
-    operations at the EXPAND shape, and the same report (every op and
-    byte) whether the plain version or the cuda path counts."""
+    """One item for the root's supports (B = 1, the problem's first
+    deal) and one per superstep, (M·W + B·W + B·M)·4 bytes and
+    2·B·M·32W bit operations at each shape, and the same report (every op
+    and byte) whether the plain version or the cuda path counts."""
     db, labels = small_problem()
     kw = {} if mode == "lamp1" else dict(min_sup=3, delta=1e-3)
     P = 8
@@ -241,9 +242,13 @@ def test_support_count_item_same_under_ref_and_cuda(mode, monkeypatch):
     item = ref["by_op"]["support_count"]
     B, W = P * 16, 2                       # expand_batch 16; 48 transactions
     M = 60                                 # mine() runs the exact item count
-    assert item["count"] == steps
-    assert item["bytes"] == steps * (M * W + B * W + B * M) * 4
-    assert item["bit_ops"] == ref["bit_ops"] == steps * 2 * B * M * 32 * W
+
+    def cost(b):
+        return (M * W + b * W + b * M) * 4, 2 * b * M * 32 * W
+
+    assert item["count"] == 1 + steps
+    assert item["bytes"] == cost(1)[0] + steps * cost(B)[0]
+    assert item["bit_ops"] == ref["bit_ops"] == cost(1)[1] + steps * cost(B)[1]
     _stub_cuda(monkeypatch)
     cuda = count_costs(lambda: outs.append(teng.mine(db, labels, mode=mode, n_miners=P,
                                                      device="cpu", **kw)))
@@ -286,6 +291,8 @@ def test_superstep_op_count_equals_a_run_without_the_mode(mode, monkeypatch):
         finally:
             inside[0] += bare.n - before
 
+    # the root's count (the first deal) and EXPAND's
+    monkeypatch.setattr(teng, "support_counts_tiled", counted)
     monkeypatch.setattr(texpand, "support_counts_tiled", counted)
     with bare:
         outs.append(teng.mine(db, labels, mode=mode, n_miners=8, device="cpu", **kw))

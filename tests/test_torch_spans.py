@@ -8,7 +8,8 @@ CPU.
   LAMP query;
 * `roots` sits in `pack`, `carry` and `outputs` in `dispatch`, and the
   `closure.*`, `dedup` and `score` spans in `reconstruct`, on the plain
-  and the streaming results paths;
+  and the streaming results paths; `roots` counts the roots it dealt and
+  `carry` the bytes it uploaded;
 * the spans change no result: a ResultSet is bit-identical under the
   default tracer, the no-op tracer and the profiler bridge;
 * the ring keeps its newest `max_events` and counts the rest in
@@ -35,6 +36,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.api as tapi  # noqa: E402
 import repro_torch.serve as tserve  # noqa: E402
+from repro_torch.core.bitmap import supports_np  # noqa: E402
 from repro_torch.obs import NULL_TRACER, SpanTracer  # noqa: E402
 from repro_torch.obs.validate import validate_chrome_trace  # noqa: E402
 from repro_torch.results import ResultStream  # noqa: E402
@@ -129,6 +131,24 @@ def test_spans_sit_in_their_parents(streamed, ckpt_period):
     assert len(reads) == (-(-n_records // 3) if streamed else 1)
     m = dataset(seed=1).packed.m_pad
     assert sum(e["args"]["bytes"] for e in reads) == n_records * m
+
+
+@pytest.mark.parametrize("ckpt_period", [0, 3])
+def test_roots_and_carry_spans_count_the_deal(ckpt_period):
+    """`roots` carries `dealt`, the roots the deal gave the miners, and
+    `carry` the bytes it uploaded: the dealt rows, far below the dense
+    [P, CAP, W] stacks the carry holds."""
+    s = session(ckpt_period)
+    ds = dataset(seed=1)
+    s.run(ds, QUERIES["closed"])
+    ev = s.tracer.events()
+    (roots,), (carry,) = ([e for e in ev if e["name"] == n] for n in ("roots", "carry"))
+    packed = ds.packed
+    sup = supports_np(packed.occ0, packed.db_bits)
+    dealt = int(((sup != packed.n) & (sup >= QUERIES["closed"].min_sup)).sum())
+    assert roots["args"]["dealt"] == dealt > 0
+    cap = s._resolve(ds.bucket).stack_cap
+    assert 24 * dealt <= carry["args"]["bytes"] < s.n_miners * cap * packed.w_pad * 4
 
 
 # ------------------------------------------------------ results unchanged

@@ -202,6 +202,62 @@ def test_cuda_kernel_matches_ref_at_every_tile():
 
 
 @pytest.mark.cuda
+def test_cuda_root_deal_matches_the_plain_deal():
+    """The root deal on the card (the root's supports one B = 1 launch of
+    the kernel at the problem's first deal, the dealt rows gathered there)
+    builds the stacks the deal on the CPU builds, bit for bit, at P = 8
+    over 20,000 items with two in every transaction; a second deal
+    launches nothing."""
+    from repro_torch.core import engine
+
+    _need_card()
+    rng = np.random.default_rng(5)
+    db = rng.random((364, 20_000)) < 0.9
+    db[:, [7, 12_345]] = True
+    stacks = []
+    for dev in ("cpu", "cuda"):
+        before = kernel.launches
+        packed = engine.pack_problem(db, None, device=dev)
+        assert kernel.launches == before
+        deal = engine.deal_roots(packed, 8, 4096, 340)
+        engine.deal_roots(packed, 8, 4096, 345)
+        assert kernel.launches == before + (dev == "cuda")
+        carry = engine._Carry(deal=deal, db_tiles=packed.db_dev, lam0=340,
+                              **engine.carry_dims(packed.n_pad, packed.npos_pad, "count"),
+                              out_cap=4, trace_cap=0, device=packed.device)
+        stacks.append((deal.n_roots, carry.to_fields(("occ_stack", "meta", "sp"))))
+    (n_cpu, cpu), (n_cuda, cuda) = stacks
+    assert n_cpu == n_cuda > 0
+    for key in cpu:
+        np.testing.assert_array_equal(cuda[key], cpu[key], err_msg=key)
+
+
+@pytest.mark.cuda
+def test_cuda_plain_session_launches_no_kernel():
+    """A session on the card with kernel_impl "ref" counts everything with
+    the plain version, the root's supports included: no kernel launch, and
+    the same answer as the kernel's session on the same Dataset."""
+    import repro_torch.api as tapi
+
+    _need_card()
+    rng = np.random.default_rng(6)
+    db = rng.random((60, 300)) < 0.5
+    db[:, [3, 200]] = True
+    ds = tapi.Dataset.from_dense(db, None, name="plain", device="cuda")
+    query = tapi.ClosedFrequentQuery(min_sup=35)
+    reps = {}
+    for impl in ("ref", "cuda"):
+        s = tapi.MinerSession(4, device="cuda",
+                              runtime=tapi.RuntimeConfig(kernel_impl=impl))
+        before = kernel.launches
+        reps[impl] = s.run(ds, query)
+        assert (kernel.launches > before) == (impl == "cuda"), impl
+        assert reps[impl].kernel_impl == impl
+    assert reps["ref"].n_significant == reps["cuda"].n_significant > 0
+    assert reps["ref"].results.to_json() == reps["cuda"].results.to_json()
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_refuses_misaligned_db():
     """A view that does not start on a 16-byte boundary (db[1:] with W odd)
     is refused by the wrapper, before any launch."""
