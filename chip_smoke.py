@@ -12,7 +12,8 @@ run on any error (each prints its wall time):
    checkout's source (into build/repro_torch/);
 3. kernel vs plain: the kernel must equal the plain PyTorch version bit for
    bit at the engine's shapes (exact and as the session's shape buckets pad
-   them), the reconstruction's and ragged shapes, crossing every fragment
+   them; mcf7's LAMP query at 512 words among them), the reconstruction's
+   and ragged shapes, crossing every fragment
    and tile edge of the MMA kernel; each shape is timed beside its bound
    and beside one PyTorch matmul on operands unpacked to {0, 1}
    beforehand (`torch._int_mm` where B > 16, else a float16 or float32
@@ -183,9 +184,11 @@ TILE_M = (1191, 2048, 11914, 11916, 253952)
 TILE_W = (12, 22, 32, 65, 96)
 #: phase 9b: the main path's shapes, every candidate timed: EXPAND at
 #: 1,191 items (P = 8, and 4 per process of 8b), a reconstruction chunk,
-#: EXPAND at both full widths, alz_rec_30's reconstruction
+#: EXPAND at both full widths, alz_rec_30's reconstruction, EXPAND of
+#: mcf7's LAMP query
 TILE_SHAPES = ((128, 2048, 32), (64, 2048, 32), (512, 2048, 32),
-               (128, 16384, 32), (128, 262144, 16), (295, 262144, 16))
+               (128, 16384, 32), (128, 262144, 16), (295, 262144, 16),
+               (1024, 512, 512))
 #: phase 9c: query (a) with this tile pinned (the default at its EXPAND
 #: shape, (128, 2048, 32), is (16, 64, 32))
 PINNED_TILE = (32, 128, 32)
@@ -1434,9 +1437,15 @@ def main() -> int:
     # the engine's shapes as the session's shape buckets pad them: EXPAND of
     # the 1,191-item query (B = 16 P = 128), a full reconstruction chunk of
     # it, and EXPAND at both full widths; the root's supports (B = 1, a
-    # dataset's first deal) at 1,191 items and alz_rec_30
+    # dataset's first deal) at 1,191 items and alz_rec_30; mcf7's LAMP query
+    # (12,773 transactions, W = 512 words, the first shapes where the
+    # operations term of the bound wins): EXPAND at P = 8 x 128, a full
+    # reconstruction chunk, the last chunks at alpha 0.05 / 0.01 / 0.001
+    # (6,343 / 5,614 / 4,753 records) and the root's supports
     bucket_shapes = [(128, 2048, 32), (512, 2048, 32), (128, 16384, 32),
-                     (128, 262144, 16), (1, 2048, 32), (1, 262144, 16)]
+                     (128, 262144, 16), (1, 2048, 32), (1, 262144, 16),
+                     (1024, 512, 512), (512, 512, 512), (199, 512, 512),
+                     (494, 512, 512), (145, 512, 512), (1, 512, 512)]
     main_shapes = [(128, 1191, 22), (512, 1191, 22)]       # exact shapes
     # (1024, 11916, 22): as 11,914 items, but every row of S starts on a
     # 16-byte boundary

@@ -52,7 +52,7 @@ import os
 import threading
 import time
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable
 
 import numpy as np
@@ -71,7 +71,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.obs import MetricsRegistry, SpanTracer
-from repro_torch.stats import get_statistic
+from repro_torch.stats import gate_rtol, get_statistic
 
 from .config import AlgorithmConfig, RuntimeConfig
 from .dataset import Dataset, ShapeBucket
@@ -188,6 +188,10 @@ class MinerSession:
         self._m_emit_drop = m.counter(
             "miner_emit_dropped_total",
             "pattern records lost to out_cap saturation")
+        self._m_gate_band = m.counter(
+            "miner_gate_band_records_total",
+            "records a widened device gate emitted that the host's float64 "
+            "test then dropped")
         self._m_trace_drop = m.counter(
             "miner_trace_dropped_total",
             "superstep trace records lost to ring wrap")
@@ -397,6 +401,7 @@ class MinerSession:
         delta: float = 0.0,
         alpha: float | None = None,
         statistic: str | None = "fisher",
+        band: float = 0.0,
     ) -> PhaseReport:
         """One engine pass on a warm (or newly built) program.
 
@@ -404,7 +409,10 @@ class MinerSession:
         "test"/"count2d" (None emits every counted closed set — the
         closed-frequent objective); modes "lamp1"/"count" use it only for
         the host-built Tarone threshold table, so their programs are shared
-        across statistics.
+        across statistics.  `band` widens the device gate to
+        delta * exp(band): the pass emits a superset for the host to decide
+        at delta, which stays the level of the checkpoint provenance and of
+        the root's host test.
         """
         if mode not in VALID_MODES:
             raise ValueError(
@@ -433,7 +441,7 @@ class MinerSession:
             with self.tracer.span("pack"):
                 args, ctx = make_program_args(
                     dataset.packed, n_proc=self.n_miners, cfg=cfg, mode=mode,
-                    alpha=alpha, min_sup=min_sup, delta=delta,
+                    alpha=alpha, min_sup=min_sup, delta=delta * math.exp(band),
                     statistic=statistic, tracer=self.tracer,
                 )
             if self.group is not None:
@@ -666,11 +674,14 @@ class MinerSession:
 
     def _build_results(self, dataset: Dataset, phase_out: MineOutput, *,
                        alpha, min_sup, k, delta, filter_host,
-                       statistic: str | None = "fisher", records=None):
+                       statistic: str | None = "fisher", records=None,
+                       pvalues=None):
         """Emitted records of one phase output -> ResultSet (results).
 
         `records=(occ, sup, pos_sup)` overrides the phase output's emitted
         arrays (used to append host-side records, e.g. the root closed set).
+        `pvalues`, the records' float64 P-values where the caller has them,
+        spares the results layer computing them again.
         Closure reconstruction counts supports with the session's resolved
         kernel, as EXPAND does.
         """
@@ -696,7 +707,7 @@ class MinerSession:
                 filter_host=filter_host, dropped=phase_out.emit_dropped,
                 item_names=dataset.item_names, statistic=statistic,
                 impl=self._resolve(dataset.bucket).kernel_impl,
-                stream=stream, tracer=self.tracer,
+                stream=stream, tracer=self.tracer, pvalues=pvalues,
             )
 
     def _root_record(self, dataset: Dataset, phase_out: MineOutput,
@@ -727,6 +738,31 @@ class MinerSession:
             np.concatenate([phase_out.sig_pos_sup,
                             [n_pos if dataset.labels is not None else 0]]),
         )
+
+    def _refilter(self, dataset: Dataset, out: MineOutput, statistic: str,
+                  delta: float) -> tuple[MineOutput, np.ndarray]:
+        """A test pass's superset decided on the host: `out` with only the
+        emitted records of float64 P-value <= delta, and `sig_count` the
+        host's count (those records and the root, which postprocess tests
+        on the host already), with the kept records' P-values.  Records
+        lost at out_cap stay counted as the widened gate decided them; the
+        ResultSet flags them (`n_dropped`).  The `refilter` span carries
+        `emitted`, `kept` and `band`, the records emitted above delta,
+        which `miner_gate_band_records_total` adds up."""
+        n, n_pos = dataset.n_transactions, dataset.n_pos
+        with self.tracer.span("refilter") as args:
+            emitted = len(out.sig_sup)
+            pvalues = get_statistic(statistic).pvalue(out.sig_sup, out.sig_pos_sup,
+                                                      n, n_pos)
+            keep = pvalues <= delta
+            kept = int(keep.sum())
+            if args is not None:
+                args.update(emitted=emitted, kept=kept, band=emitted - kept)
+        if emitted > kept:
+            self._m_gate_band.inc(emitted - kept)
+        return replace(out, sig_occ=out.sig_occ[keep], sig_core=out.sig_core[keep],
+                       sig_sup=out.sig_sup[keep], sig_pos_sup=out.sig_pos_sup[keep],
+                       sig_count=out.sig_count - (emitted - kept)), pvalues[keep]
 
     def _partial_mine_report(
         self, dataset: Dataset, phases, *, pipeline: str, query_tag: str,
@@ -806,23 +842,30 @@ def _pipeline_three_phase(session: MinerSession, dataset: Dataset,
         )
     k = int(ph2.output.hist[min_sup:].sum())
     delta = alpha / max(k, 1)
-    # phase 3: significance testing at delta
+    # phase 3: significance testing at delta.  The float32 device test
+    # gates at delta * exp(gate_rtol(N)), a superset of the significant
+    # records; the host keeps those of float64 P-value <= delta and counts
+    # them, so the pass's output holds the records at delta
     ph3 = session.run_phase(dataset, "test", min_sup=min_sup, delta=delta,
-                            alpha=alpha, statistic=statistic)
+                            alpha=alpha, statistic=statistic,
+                            band=gate_rtol(dataset.n_transactions))
+    out, pvalues = session._refilter(dataset, ph3.output, statistic, delta)
+    ph3 = replace(ph3, output=out)
     if ph3.partial:  # records emitted so far are already delta-filtered
         return session._partial_mine_report(
             dataset, [ph1, ph2, ph3], pipeline="three_phase",
             query_tag="significant", alpha=alpha, statistic=statistic, t0=t0,
             min_sup=min_sup, k=k, delta=delta, lam=ph1.lam_final,
         )
-    # the device already filtered at delta; reconstruct + exact stats only
-    # (the root closed set is appended iff the statistic counts it — it is
-    # in ph3's n_sig exactly when significant, so list and count agree)
+    # the root closed set is appended iff the statistic counts it at delta
+    # (postprocess's host test, so list and count agree)
+    records = session._root_record(dataset, out, statistic, delta, min_sup)
+    if records is not None:
+        n, n_pos = dataset.n_transactions, dataset.n_pos
+        pvalues = np.append(pvalues, get_statistic(statistic).pvalue(n, n_pos, n, n_pos))
     results = session._build_results(
-        dataset, ph3.output, alpha=alpha, min_sup=min_sup, k=k, delta=delta,
-        filter_host=False, statistic=statistic,
-        records=session._root_record(dataset, ph3.output, statistic, delta,
-                                     min_sup),
+        dataset, out, alpha=alpha, min_sup=min_sup, k=k, delta=delta,
+        filter_host=False, statistic=statistic, records=records, pvalues=pvalues,
     )
     return MineReport(
         dataset=dataset.name,
@@ -832,7 +875,7 @@ def _pipeline_three_phase(session: MinerSession, dataset: Dataset,
         min_sup=min_sup,
         correction_factor=k,
         delta=delta,
-        n_significant=ph3.output.sig_count,
+        n_significant=out.sig_count,
         results=results,
         phases=(ph1, ph2, ph3),
         wall_s=time.perf_counter() - t0,

@@ -12,8 +12,10 @@ device records into a `ResultSet`:
 
 Two filtering regimes:
 
-  * mode="test" records were already filtered at delta on device — pass
-    ``filter_host=False`` and every record is kept.
+  * mode="test" records were already filtered at delta — on the host in
+    float64 for a three_phase query (`MinerSession._refilter`, which hands
+    on their P-values), else by the device — pass ``filter_host=False``
+    and every record is kept.
   * mode="count2d" records are the alpha-level superset — pass
     ``filter_host=True`` and the host keeps exactly those with exact
     P <= delta.
@@ -252,6 +254,7 @@ def build_result_set(
     impl: str = "auto",
     stream: ResultStream | None = None,
     tracer=NULL_TRACER,
+    pvalues: np.ndarray | None = None,
 ) -> ResultSet:
     """Emitted records -> deduped, exactly-(re)tested, sorted ResultSet.
 
@@ -267,7 +270,9 @@ def build_result_set(
     `ResultStream`); the returned ResultSet is identical either way.
     `tracer` records the reconstruction's `closure.*` spans
     (`reconstruct_closures`), `dedup` and `score` (the float64 P/q, the
-    patterns and their sort).
+    patterns and their sort).  `pvalues`, the records' float64 P-values
+    where the caller has computed them, are used instead of computing them
+    again.
     """
     occ = np.asarray(occ, dtype=np.uint32).reshape(-1, db_bits.shape[1])
     if isinstance(db_bits, torch.Tensor):
@@ -276,13 +281,15 @@ def build_result_set(
         db_dev = words_to_tensor(np.asarray(db_bits), resolve_device(device))
     sup = np.asarray(sup, dtype=np.int64).reshape(-1)
     pos_sup = np.asarray(pos_sup, dtype=np.int64).reshape(-1)
+    if pvalues is not None:
+        pvalues = np.asarray(pvalues, dtype=np.float64).reshape(-1)
 
     k = max(int(correction_factor), 1)
     if stream is not None:
         patterns = _build_patterns_streaming(
             occ, sup, pos_sup, db_dev, n=n, n_pos=n_pos, k=k, delta=delta,
             filter_host=filter_host, statistic=statistic, stream=stream,
-            impl=impl, tracer=tracer,
+            impl=impl, tracer=tracer, pvalues=pvalues,
         )
         return ResultSet(
             patterns=patterns,
@@ -299,7 +306,11 @@ def build_result_set(
 
     closures = reconstruct_closures(occ, sup, db_dev, impl=impl, tracer=tracer)
     with tracer.span("dedup"):
-        closures, sup, pos_sup = dedup_by_closure(closures, sup, pos_sup)
+        if pvalues is None:
+            closures, sup, pos_sup = dedup_by_closure(closures, sup, pos_sup)
+        else:
+            closures, sup, pos_sup, pvalues = dedup_by_closure(closures, sup, pos_sup,
+                                                               pvalues)
 
     with tracer.span("score"):
         patterns = []
@@ -313,7 +324,8 @@ def build_result_set(
                     qvalue=float("nan"),
                 ))
         elif len(closures):
-            pvals = get_statistic(statistic).pvalue(sup, pos_sup, n, n_pos)
+            pvals = (get_statistic(statistic).pvalue(sup, pos_sup, n, n_pos)
+                     if pvalues is None else pvalues)
             keep = pvals <= delta if filter_host else np.ones(len(closures), bool)
             for i in np.flatnonzero(keep):
                 p = float(pvals[i])
@@ -356,7 +368,7 @@ def _sort_key(statistic: str | None):
 
 def _build_patterns_streaming(
     occ, sup, pos_sup, db_dev, *, n, n_pos, k, delta, filter_host,
-    statistic, stream: ResultStream, impl: str, tracer,
+    statistic, stream: ResultStream, impl: str, tracer, pvalues=None,
 ) -> list[Pattern]:
     """Reconstruct records in significance order, stream the head early.
 
@@ -380,7 +392,8 @@ def _build_patterns_streaming(
             partial = lambda j: (-int(sup[j]),)                    # noqa: E731
             partial_p = lambda p: (-p.support,)                    # noqa: E731
         else:
-            pvals = (get_statistic(statistic).pvalue(sup, pos_sup, n, n_pos)
+            pvals = (pvalues if pvalues is not None
+                     else get_statistic(statistic).pvalue(sup, pos_sup, n, n_pos)
                      if n_rec else np.zeros(0))
             idx = np.flatnonzero(pvals <= delta) if filter_host else np.arange(n_rec)
             order = (idx[np.lexsort((idx, -sup[idx], pvals[idx]))]

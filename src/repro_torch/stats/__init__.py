@@ -5,8 +5,10 @@ and "chi2" (continuity-corrected one-sided chi-square upper bound).
 """
 
 from .base import (
+    EPS32,
     STATISTICS,
     TestStatistic,
+    gate_rtol,
     get_statistic,
     register_statistic,
     thresholds_from_bound,
@@ -22,8 +24,10 @@ from .fisher import (
 )
 
 __all__ = [
+    "EPS32",
     "STATISTICS",
     "TestStatistic",
+    "gate_rtol",
     "get_statistic",
     "register_statistic",
     "thresholds_from_bound",

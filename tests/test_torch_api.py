@@ -25,7 +25,6 @@ import warnings
 
 import numpy as np
 import pytest
-from scipy.special import gammaln
 
 torch = pytest.importorskip("torch")
 
@@ -37,25 +36,11 @@ from repro.core.lcm import lcm_closed  # noqa: E402
 from repro.data.synthetic import SyntheticSpec, generate  # noqa: E402
 from repro_torch.core.bitmap import pack_db  # noqa: E402
 from repro_torch.core.engine import EngineConfig  # noqa: E402
-from repro_torch.stats import get_statistic  # noqa: E402
+from repro_torch.stats import gate_rtol, get_statistic  # noqa: E402
 from repro_torch.topo import Topology  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
-
-#: float32 unit roundoff
-EPS32 = float(np.finfo(np.float32).eps)
-
-
-def gate_rtol(n: int) -> float:
-    """How close (relative) a float64 P-value may lie to an emission gate
-    and still be decided differently by the two float32 device tests.
-    tests/test_torch_oracles.py proves the port's float32 P-values within
-    tol = 4 float32 ulps of log Gamma(n + 1), in log space, of JAX's and of
-    the exact ones; so the two sides can part only on a record within 2 tol
-    of the gate, plus the gate's own rounding to float32."""
-    return 2 * 4 * EPS32 * float(gammaln(n + 1)) + EPS32
-
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
