@@ -62,8 +62,15 @@ run on any error (each prints its wall time):
    wall and launches (and 2x4's idle share); (b) a gloo cluster of 2 processes x 4
    miners on the one card (`bootstrap.launch_local_cluster`), each process
    equal to (a)'s 2x4 run and launching the kernel at B = 16 x 4;
+9. the kernel's tile (9a-9d, see `phase9`);
+10. each superstep one CUDA graph replay (`phase10`): mcf7's LAMP query
+   and alz_rec_30's closed-frequent query at their widths, P = 8, graph
+   against eager bit for bit (reports and launches), the replay share,
+   the graph pools' bytes, and the profiler's support-count kernels
+   against the launches counted; and alz_rec_30's served by a fleet of
+   two under the profiler, its workers running eagerly (10c);
 and, after them, the kernel against the plain version at every shape
-phases 4-8 launched that phase 3 did not check (3b).
+phases 4-10 launched that phase 3 did not check (3b).
 
 The second-to-last line is a JSON object with the kernel's numbers (its
 tile instantiations and phase 9b's per-tile times among them); the last is
@@ -192,6 +199,10 @@ TILE_SHAPES = ((128, 2048, 32), (64, 2048, 32), (512, 2048, 32),
 #: phase 9c: query (a) with this tile pinned (the default at its EXPAND
 #: shape, (128, 2048, 32), is (16, 64, 32))
 PINNED_TILE = (32, 128, 32)
+#: phase 10: the benchmark's two deployments at their widths, P = 8:
+#: (problem, expand batch, query) — mcf7's LAMP query (three_phase,
+#: Fisher) and alz_rec_30's closed-frequent query
+GRAPH_CELLS = (("mcf7", 128, ("lamp", 0.05)), ("alz_rec_30", 16, ("closed", 347)))
 #: the idle share's profile: (s after a pass starts, s of window).  The
 #: pass serves requests 1..size, one per worker, each longer than the
 #: window's end even alone (request 1 is the longest of the 16)
@@ -1373,6 +1384,162 @@ def phase9(ds_a, rep_a, tiles_a: dict, acts_per_step, launched: set) -> dict:
     return out
 
 
+def _graph_pool_bytes() -> int | None:
+    """Bytes the caching allocator holds in private pools (CUDA graphs'),
+    None where its snapshot names no pool."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) != (0, 0))
+
+
+def phase10() -> dict:
+    """Phase 10: each superstep one CUDA graph replay.  For each of
+    `GRAPH_CELLS`, P = 8: a session replaying graphs against one running
+    the eager loop (`engine.step_graphs` patched off), a cold query and
+    two warm ones each: every report bit-identical, the kernel launched as
+    often at each shape; the replay share of the warm queries
+    (`miner_superstep_replays_total` over their supersteps), the graph
+    pools' bytes, the warm walls; then one more warm query under the
+    profiler, whose support-count kernels on the card must equal the
+    launches counted, replays included.  Returns its numbers by cell."""
+    import torch
+
+    from repro_torch.api import (
+        ClosedFrequentQuery,
+        Dataset,
+        MinerSession,
+        RuntimeConfig,
+        SignificantPatternQuery,
+    )
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import paper_problem_packed
+
+    out = {}
+    graphs_on = engine.step_graphs
+    for name, batch, (kind, arg) in GRAPH_CELLS:
+        bits, lab, _, sp = paper_problem_packed(name)
+        ds = Dataset.from_packed_words(bits, lab, n_transactions=sp.n_transactions,
+                                       name=name, device="cuda")
+        query = (SignificantPatternQuery(alpha=arg, pipeline="three_phase")
+                 if kind == "lamp" else ClosedFrequentQuery(min_sup=arg))
+        engine.root_supports(ds.packed)   # a dataset's first deal counts them
+        replays = "miner_superstep_replays_total"
+        runs = {}
+        for path in ("eager", "graph"):
+            engine.step_graphs = graphs_on if path == "graph" else (lambda *a: False)
+            try:
+                session = MinerSession(8, runtime=RuntimeConfig(expand_batch=batch))
+                pool0 = _graph_pool_bytes()
+                runs[path] = [_counted(lambda: session.run(ds, query))]
+                cold = _metric(session, replays)
+                runs[path] += [_counted(lambda: session.run(ds, query)) for _ in range(2)]
+            finally:
+                engine.step_graphs = graphs_on
+            if path == "graph":
+                graph_session, cold_replays, pool = session, cold, _graph_pool_bytes()
+                pool = None if pool is None or pool0 is None else pool - pool0
+        for i, ((rep_e, _, n_e, sh_e), (rep_g, _, n_g, sh_g)) in enumerate(
+                zip(runs["eager"], runs["graph"])):
+            bad = report_diffs(rep_e, rep_g)
+            if bad or (n_e, sh_e) != (n_g, sh_g):
+                raise AssertionError(f"(10) {name} query {i}: graph != eager in {bad}, "
+                                     f"launches {n_g} {sh_g} vs {n_e} {sh_e}")
+        steps = sum(p.supersteps for r, *_ in runs["graph"] for p in r.phases)
+        n_replays = _metric(graph_session, replays)
+        graphs = _metric(graph_session, "miner_superstep_graphs_total")
+        warm_steps = sum(p.supersteps for r, *_ in runs["graph"][1:] for p in r.phases)
+        warm_share = (n_replays - cold_replays) / warm_steps
+        (rep_p, _, n_p, _), dev, _ = _profile(lambda: _counted(
+            lambda: graph_session.run(ds, query)))
+        seen = sum(n for k, (n, _) in dev.items() if "support_count_kernel" in k)
+        if seen != n_p or report_diffs(rep_p, runs["graph"][1][0]):
+            raise AssertionError(f"(10) {name} profiled: the profiler saw {seen} "
+                                 f"support-count kernels, {n_p} launches counted")
+        walls = {path: [round(w, 4) for _, w, _, _ in runs[path][1:]] for path in runs}
+        share = (_metric(graph_session, replays) - n_replays) / sum(
+            p.supersteps for p in rep_p.phases)
+        if min(warm_share, share) < 0.95:
+            raise AssertionError(f"(10) {name}: replay share {warm_share} warm, "
+                                 f"{share} profiled")
+        out[name] = dict(supersteps=steps, replays=n_replays, graphs=graphs,
+                         warm_share=warm_share, profiled_share=share, pool_bytes=pool,
+                         walls=walls, launches=n_p, profiled_kernels=seen)
+        print(f"  (10) {name} ({kind} {arg}, expand batch {batch}): graph == eager on a "
+              f"cold and two warm queries (reports and launches); {steps} supersteps, "
+              f"{int(n_replays)} replays of {int(graphs)} graphs (warm share "
+              f"{warm_share:.4f}, profiled {share:.4f}); graph pools "
+              f"{'n.m.' if pool is None else f'{pool / 2**20:.1f} MiB'}; warm walls eager "
+              f"{walls['eager']} s, graph {walls['graph']} s; profiled: {seen} "
+              f"support-count kernels = {n_p} launches counted", flush=True)
+        if kind == "closed":
+            out[f"{name} served"] = _served_eagerly(ds, batch, arg)
+        del ds, graph_session, runs
+    return out
+
+
+def _served_eagerly(ds, batch: int, min_sup: int) -> dict:
+    """(10c) closed queries at min_sup .. min_sup + 3 served by a fleet of
+    two P = 8 sessions, two closed-loop clients, after one warm request
+    each (the `.served` cell's shape), with the CUDA profiler started and
+    stopped while both serve: every report equals a direct run's, and the
+    workers, each on a stream of its own, replay no graph (a replay there
+    deadlocks with the profiler's stop, `engine.on_default_stream`)."""
+    import asyncio
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import ClosedFrequentQuery, MinerSession, RuntimeConfig
+    from repro_torch.serve import MiningService, WarmupSpec
+
+    runtime = RuntimeConfig(expand_batch=batch)
+    queries = [ClosedFrequentQuery(min_sup=min_sup + i % 4) for i in range(40)]
+    direct = MinerSession(8, runtime=runtime)
+    want = {q.min_sup: results_sha256(direct.run(ds, q).results) for q in queries[:4]}
+    replays = "miner_superstep_replays_total"
+
+    async def serve():
+        svc = MiningService(size=2, n_miners=8, runtime=runtime,
+                            warmups=[WarmupSpec(ds.bucket, statistic=None,
+                                                pipeline="three_phase")])
+        await svc.start()
+        try:
+            await asyncio.gather(*[svc.mine(ds, q) for q in queries[:2]])
+            todo, done = iter(queries), []
+
+            async def client():
+                for q in todo:
+                    done.append((q, await svc.mine(ds, q)))
+
+            async def profiled():
+                await asyncio.sleep(0.2)
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+                await asyncio.sleep(0.5)
+                prof.stop()
+
+            await asyncio.gather(client(), client(), profiled())
+            # the fleet's sessions share one metrics registry
+            n_replays = _metric(svc.fleet.workers[0].session, replays)
+        finally:
+            await svc.stop()
+        return done, n_replays
+
+    done, n_replays = asyncio.run(serve())
+    bad = [q.min_sup for q, res in done
+           if not res.ok or results_sha256(res.report.results) != want[q.min_sup]]
+    steps = sum(p.supersteps for _, res in done for p in res.report.phases)
+    if bad or n_replays:
+        raise AssertionError(f"(10c) served: {bad} differ from direct runs; "
+                             f"{n_replays} replays")
+    print(f"  (10c) {len(done)} closed queries served by a fleet of 2 (two clients, "
+          f"after one warm request each, profiled 0.5 s while serving) = direct runs; "
+          f"{steps} supersteps, none replayed", flush=True)
+    return dict(requests=len(done), supersteps=steps, replays=n_replays)
+
+
 def main() -> int:
     try:
         import torch
@@ -1659,6 +1826,14 @@ def main() -> int:
     p9 = phase9(datasets["cuda"], rep_a, tiles_a, acts_per_step, launched)
     done("9", t0)
 
+    # ---- 10. the superstep as one CUDA graph
+    t0 = time.perf_counter()
+    print("[10] each superstep one CUDA graph replay: graph against eager at "
+          f"{[c[0] for c in GRAPH_CELLS]}'s widths, the replay share, the graph "
+          "pools, the profiler's support-count kernels against the launches", flush=True)
+    p10 = phase10()
+    done("10", t0)
+
     # ---- 3b. the kernel at every shape phases 4-9 launched, not yet checked
     t0 = time.perf_counter()
     new = sorted(launched - checked)
@@ -1707,6 +1882,8 @@ def main() -> int:
         "instantiations": INSTANTIATIONS,
         "tiles": [[*k[:3], list(k[3]), n] for k, n in sorted(tiles_a.items())],
         "phase9": p9,
+        # the superstep graphs at the benchmark's widths
+        "phase10": p10,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

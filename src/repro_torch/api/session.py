@@ -192,6 +192,12 @@ class MinerSession:
             "miner_gate_band_records_total",
             "records a widened device gate emitted that the host's float64 "
             "test then dropped")
+        self._m_replays = m.counter(
+            "miner_superstep_replays_total",
+            "supersteps run as one replay of a CUDA graph")
+        self._m_graphs = m.counter(
+            "miner_superstep_graphs_total",
+            "superstep CUDA graphs captured")
         self._m_trace_drop = m.counter(
             "miner_trace_dropped_total",
             "superstep trace records lost to ring wrap")
@@ -461,6 +467,8 @@ class MinerSession:
             # lamp1/count programs are statistic-free, shared under None
             stat_key = statistic if mode in ("test", "count2d") else None
             entry, hit = self._program(mode, dataset.bucket, cfg, stat_key)
+            graph = getattr(entry.compiled, "step_graph", None)
+            seen = (graph.replays, graph.graphs) if graph is not None else None
             with self.tracer.span("dispatch", cache_hit=hit):
                 if cfg.ckpt_period > 0:
                     raw, partial, resumed = self._run_segmented(
@@ -473,6 +481,9 @@ class MinerSession:
                     # every process gathers the same full outputs, so
                     # postprocess (and the ResultSet) is identical everywhere
                     raw = bootstrap.fetch_outputs(raw, self.group)
+            if graph is not None:
+                self._m_replays.inc(graph.replays - seen[0])
+                self._m_graphs.inc(graph.graphs - seen[1])
             with self.tracer.span("postprocess"):
                 out = postprocess_phase(
                     raw, packed=dataset.packed, n_proc=self.n_miners, cfg=cfg,

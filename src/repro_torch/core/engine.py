@@ -22,6 +22,16 @@ record per miner into a [P, trace_cap, N_FIELDS] int32 ring on the device
 (repro_torch.obs.trace); the superstep counter is a host int, so unsampled
 steps do no trace work at all.
 
+On a card, in one process, with the trace ring off and on the default
+stream, each superstep after a program's first is one replay of a CUDA
+graph (`_StepGraph`): the ~240 launches of a superstep are captured once,
+right after the program's first superstep, and replayed from then on, on
+buffers the program owns; the census read stays the loop's one wait on
+the device.  The same superstep body runs eagerly elsewhere (the CPU, a
+multi-process group, the sampled trace record, a serving fleet's worker
+stream) and while `launch.op_cost` counts, which sees only the operators
+it dispatches.
+
 With `ckpt_period > 0` the pass runs *segmented* (DESIGN.md §11): the loop
 stops every ckpt_period supersteps, where `run_segments` fires the
 engine.superstep fault point, hands the carry to a checkpoint writer and
@@ -49,7 +59,9 @@ and the outputs (see `repro_torch.topo.bootstrap`).
 
 from __future__ import annotations
 
+import copy
 import functools
+import threading
 import warnings
 from dataclasses import dataclass, field, replace
 
@@ -57,8 +69,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.support_count import autotune
+from repro_torch.kernels.support_count import autotune, kernel
 from repro_torch.kernels.support_count.ops import resolve_impl, support_counts_tiled
+from repro_torch.launch import op_cost
 from repro_torch.obs.span import NULL_TRACER
 from repro_torch.obs.trace import N_FIELDS, SuperstepTrace, decode_trace
 from repro_torch.stats import get_statistic
@@ -131,6 +144,14 @@ CARRY_FIELDS = (
     "occ_stack", "meta", "sp", "head", "hist", "hist_snap", "g_hist_acc",
     "hist2d", "lam", "t", "stats", "out_occ", "out_meta", "out_ptr",
     "n_sig", "trace", "work",
+)
+
+#: the carry's device leaves a superstep writes (the sampled trace record
+#: aside): where a CUDA graph replays the superstep, these live at fixed
+#: addresses
+STEP_FIELDS = (
+    "occ_stack", "meta", "sp", "head", "hist", "hist_snap", "g_hist_acc",
+    "hist2d", "lam", "stats", "out_occ", "out_meta", "out_ptr", "n_sig",
 )
 
 
@@ -536,6 +557,13 @@ class _Carry:
         }
         return {k: leaves[k]() for k in names}
 
+    def assign(self, other: "_Carry") -> None:
+        """Take `other`'s state into this carry's own buffers (the leaves a
+        superstep writes; the trace ring, which it does not, by reference)."""
+        for name in STEP_FIELDS:
+            getattr(self, name).copy_(getattr(other, name))
+        self.trace, self.t, self.work = other.trace, other.t, other.work
+
     @classmethod
     def from_fields(cls, d: dict, device) -> "_Carry":
         """The inverse of `to_fields`: a carry on `device` from a host carry
@@ -581,6 +609,128 @@ def _thr_tensor(thr, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(thr, np.int64)).to(device)
 
 
+def step_graphs(device: torch.device, group, cfg: EngineConfig) -> bool:
+    """Whether a program replays its supersteps as a CUDA graph: on a card,
+    in one process (a group's steal and sync call collectives) and with
+    the trace ring off (its record is sampled by the host's step count).
+    A run replays them only on the default stream (`on_default_stream`)."""
+    return device.type == "cuda" and group is None and cfg.trace_period == 0
+
+
+def on_default_stream(device: torch.device) -> bool:
+    """Whether work on `device` goes to its default stream now.  A serving
+    fleet's worker runs on a stream of its own in a thread beside others,
+    and there a graph replay deadlocks with `torch.profiler` stopped from
+    another thread (CUPTI's flush against `cudaGraphLaunch`): its
+    supersteps run eagerly."""
+    return (device.type != "cuda"
+            or torch.cuda.current_stream(device) == torch.cuda.default_stream(device))
+
+
+def _rebound_back(carry: _Carry, view: _Carry) -> None:
+    """Copy the leaves a superstep rebound on `view`, a shallow copy of
+    `carry`, into `carry`'s own buffers."""
+    for name in STEP_FIELDS:
+        new = getattr(view, name)
+        if new is not getattr(carry, name):
+            getattr(carry, name).copy_(new)
+
+
+#: held by a capture (`_StepGraph._capture`)
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _StepGraph:
+    """A program's superstep as one CUDA graph, replayed step after step.
+
+    A graph replays fixed addresses and frozen scalars, so the superstep
+    runs on buffers the program owns: `carry` (the first carry the program
+    ran; each later one is copied into it, and the program hands `carry`
+    back), `ops` (the database, positives, thresholds, delta and the
+    dataset's N and N_pos as device tensors, copied in before every run),
+    the step counter `t` (set from the host's before every run, advanced
+    by the step) and `census` (the hunger census, the graph's one output).
+    The step body writes the leaves it rebinds back into `carry`
+    (`_rebound_back`); nothing else the graph allocates outlives a replay.
+
+    The program's first superstep runs eagerly on those buffers (it loads
+    the kernel and sizes every launch), then the next one is captured,
+    which runs nothing; every later superstep replays it, on the default
+    stream (`on_default_stream`).  Each replay adds the kernel launches
+    the capture recorded to the kernel's counters.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.carry = None
+        self.ops = None
+        self.t = torch.zeros((), dtype=torch.int64, device=device)
+        self.census = torch.zeros((), dtype=torch.int64, device=device)
+        self.graph = None
+        self.launches = None   # the capture's kernel launches (a replay's)
+        #: supersteps run by replay, graphs captured
+        self.replays = 0
+        self.graphs = 0
+
+    def load(self, st: _Carry, db_tiles, pos_mask, thr_t, delta_t, n_act,
+             npos_act) -> _Carry:
+        """Take the run's carry and operands into the program's buffers;
+        returns the carry the run goes on with."""
+        if self.carry is None:
+            self.carry = st
+            i64 = torch.int64
+            self.ops = (torch.empty_like(db_tiles), torch.empty_like(pos_mask),
+                        torch.empty_like(thr_t), torch.empty_like(delta_t),
+                        torch.empty((), dtype=i64, device=self.device),
+                        torch.empty((), dtype=i64, device=self.device))
+        elif st is not self.carry:
+            self.carry.assign(st)
+        db, pm, thr, delta, n, npos = self.ops
+        db.copy_(db_tiles)
+        pm.copy_(pos_mask)
+        thr.copy_(thr_t)
+        delta.copy_(delta_t)
+        n.fill_(int(n_act))
+        npos.fill_(int(npos_act))
+        self.t.fill_(self.carry.t)
+        return self.carry
+
+    def step(self, body) -> torch.Tensor | None:
+        """One superstep: `body(carry)` eagerly and then the capture, the
+        first time, else a replay.  Returns the eager step's census, or
+        None after a replay (it is in `census`)."""
+        if self.graph is not None:
+            self.graph.replay()
+            kernel.count_replayed(self.launches)
+            self.replays += 1
+            return None
+        view = copy.copy(self.carry)
+        n_hungry = body(view)
+        _rebound_back(self.carry, view)
+        self._capture(body)
+        return n_hungry
+
+    def _capture(self, body) -> None:
+        # the default stream cannot be captured: a stream of the
+        # high-priority pool, which no fleet worker's stream comes from,
+        # and one capture at a time, so that two never share a pool stream
+        # (a capture on another thread's stream swallows its launches)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(self.device, priority=-1)
+        with _CAPTURE_LOCK, torch.cuda.stream(stream), \
+                kernel.recording_launches() as launches:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                view = copy.copy(self.carry)
+                self.census.copy_(body(view))
+                _rebound_back(self.carry, view)
+                del view
+            finally:
+                graph.capture_end()
+        self.graph, self.launches = graph, launches
+        self.graphs += 1
+
+
 def build_mine_step(
     *, n: int, n_pos: int, m: int, cfg: EngineConfig, stack_cap: int,
     schedule: LifelineSchedule, mode: str, device,
@@ -594,17 +744,23 @@ def build_mine_step(
     10-tuple of numpy arrays that `postprocess_phase` takes (the JAX
     program's outputs).  With ckpt_period > 0 it is the segment program
     `seg(carry, db_tiles, pos_mask, thr, delta, n_act, npos_act, t_stop)`,
-    which advances a `_Carry` in place to superstep t_stop (or until the
-    frontier drains) and returns it.
+    which advances a `_Carry` to superstep t_stop (or until the frontier
+    drains) and returns it: in place, or, where the program replays CUDA
+    graphs, as the program's own carry, into which it was copied.
+
+    Where `step_graphs` holds, the program's supersteps after its first
+    are replays of one CUDA graph (`_StepGraph`, the program's
+    `step_graph` attribute; None elsewhere), in the runs made on the
+    default stream and outside `op_cost.count_costs`.
 
     Either program takes a keyword `tracer` (`obs.SpanTracer`; default
     `NULL_TRACER`) and records into it, beneath the caller's spans: the
     classic program's `carry` (the carry allocated and the dealt roots
     placed; arg `bytes`, what it uploaded) and `outputs` (read back to
-    the host), and in both one
-    `superstep` span per iteration (args `t`, and `fired` where stealing is
-    on) holding `expand`, `steal`, `global` and `census.read`, the host's
-    one wait on the device a superstep.
+    the host), and in both one `superstep` span per iteration (args `t`,
+    `graph`, true for a replay, and `fired` where stealing is on) holding
+    `census.read`, the host's one wait on the device a superstep, and,
+    where the superstep runs eagerly, `expand`, `steal` and `global`.
 
     `group` (a `core.collectives.MinerGroup`, classic program only) runs
     this process's block of the schedule's P miners: the program then
@@ -666,47 +822,76 @@ def build_mine_step(
         if idx >= tcap:   # the ring wrapped over the oldest record
             st.stats[:, Stat.TRACE_DROPPED] += 1
 
+    def superstep(st, t, ops, span):
+        """One superstep's device work on carry `st`: EXPAND, the census,
+        STEAL, the counters, the sampled record and GLOBAL.  `t` is the
+        host's step count, or on the graph path the device step counter,
+        which the step advances.  Returns the census [0-d] and, with a
+        group, its host value (read before STEAL)."""
+        db_tiles, pos_mask, thr_t, delta_t, n_act, npos_act = ops
+        sampled = period > 0 and t % period == 0
+        if sampled:
+            stats_before = st.stats.clone()
+        with span("expand"):
+            sig_cnt = expand(st, db_tiles, pos_mask, delta_t, n_act, npos_act)
+        st.n_sig += sig_cnt
+        # the hunger census: REQUEST side of the steal exchange and the
+        # exact termination test (steals only redistribute work)
+        hungry_vec = hunger_census(st.sp)
+        n_hungry_host = None
+        if group is not None:  # every process reads the global census
+            (hungry_vec,) = group.all_gather(hungry_vec)
+            with span("census.read"):
+                n_hungry_host = int(hungry_vec.sum())
+        n_hungry = hungry_vec.sum()
+        k_given = k_recv = no_steal
+        if cfg.steal_enabled:
+            with span("steal"):
+                got, gave, k_given, k_recv = steal_round(
+                    t, hungry_vec, st,
+                    any_hungry=group is None or n_hungry_host > 0)
+                st.stats[:, Stat.STEALS_GOT] += got
+                st.stats[:, Stat.GIVES] += gave
+                st.stats[:, Stat.STOLEN_NODES] += k_given
+                st.stats[:, Stat.STEAL_ROUNDS] += (n_hungry > 0).long()
+        st.stats[:, Stat.IDLE_STEPS] += (st.sp == 0).long()
+        st.stats[:, Stat.SUPERSTEPS] += 1
+        if sampled:
+            record(st, t, stats_before, n_hungry, sig_cnt, k_given, k_recv)
+        with span("global"):
+            global_sync(t, st, thr_t)
+        if isinstance(t, torch.Tensor):
+            t.add_(1)
+        return n_hungry, n_hungry_host
+
+    step_graph = _StepGraph(device) if step_graphs(device, group, cfg) else None
+    no_span = NULL_TRACER.span
+
     def run_to(st, t_stop, db_tiles, pos_mask, thr_t, delta_t, n_act, npos_act,
                tracer):
         # `work` (miners with work) is read back once per superstep: the
         # loop's only device -> host sync
         span = tracer.span
+        ops = (db_tiles, pos_mask, thr_t, delta_t, n_act, npos_act)
+        g = (step_graph if step_graph is not None and not op_cost.counting()
+             and on_default_stream(device) else None)
+        if g is not None:
+            st = g.load(st, *ops)
+
+            def body(view):
+                return superstep(view, g.t, g.ops, no_span)[0]
+
         while st.work > 0 and st.t < t_stop:
             t = st.t
-            with span("superstep", t=t) as step_args:
-                sampled = period > 0 and t % period == 0
-                if sampled:
-                    stats_before = st.stats.clone()
-                with span("expand"):
-                    sig_cnt = expand(st, db_tiles, pos_mask, delta_t, n_act, npos_act)
-                st.n_sig += sig_cnt
-                # the hunger census: REQUEST side of the steal exchange and
-                # the exact termination test (steals only redistribute work)
-                hungry_vec = hunger_census(st.sp)
-                if group is not None:  # every process reads the global census
-                    (hungry_vec,) = group.all_gather(hungry_vec)
+            replay = g is not None and g.graph is not None
+            with span("superstep", t=t, graph=replay) as step_args:
+                if g is None:
+                    n_hungry, n_hungry_host = superstep(st, t, ops, span)
+                else:
+                    n_hungry, n_hungry_host = g.step(body), None
+                if n_hungry_host is None:
                     with span("census.read"):
-                        n_hungry_host = int(hungry_vec.sum())
-                n_hungry = hungry_vec.sum()
-                k_given = k_recv = no_steal
-                if cfg.steal_enabled:
-                    with span("steal"):
-                        got, gave, k_given, k_recv = steal_round(
-                            t, hungry_vec, st,
-                            any_hungry=group is None or n_hungry_host > 0)
-                        st.stats[:, Stat.STEALS_GOT] += got
-                        st.stats[:, Stat.GIVES] += gave
-                        st.stats[:, Stat.STOLEN_NODES] += k_given
-                        st.stats[:, Stat.STEAL_ROUNDS] += (n_hungry > 0).long()
-                st.stats[:, Stat.IDLE_STEPS] += (st.sp == 0).long()
-                st.stats[:, Stat.SUPERSTEPS] += 1
-                if sampled:
-                    record(st, t, stats_before, n_hungry, sig_cnt, k_given, k_recv)
-                with span("global"):
-                    global_sync(t, st, thr_t)
-                if group is None:
-                    with span("census.read"):
-                        n_hungry_host = int(n_hungry)
+                        n_hungry_host = int(g.census if replay else n_hungry)
                 st.work = n_proc - n_hungry_host
                 st.t = t + 1
                 if step_args is not None and cfg.steal_enabled:
@@ -724,8 +909,8 @@ def build_mine_step(
             thr_t = _thr_tensor(thr, device)
             if carry_args is not None:
                 carry_args["bytes"] = st.h2d_bytes + delta_t.nbytes + thr_t.nbytes
-        run_to(st, cfg.max_steps, db_tiles, pos_mask, thr_t, delta_t, n_act,
-               npos_act, tracer)
+        st = run_to(st, cfg.max_steps, db_tiles, pos_mask, thr_t, delta_t, n_act,
+                    npos_act, tracer)
         # one exact full-histogram sum at termination
         i32 = np.int32
         out_cap = cfg.out_cap
@@ -749,7 +934,11 @@ def build_mine_step(
         return run_to(st, t_stop, db_tiles, pos_mask, _thr_tensor(thr, device),
                       delta_t, n_act, npos_act, tracer)
 
-    return seg_program if cfg.ckpt_period > 0 else program
+    prog = seg_program if cfg.ckpt_period > 0 else program
+    # the program's `_StepGraph` (its replay and capture counts), None
+    # where its supersteps run eagerly
+    prog.step_graph = step_graph
+    return prog
 
 
 def make_phase_args(

@@ -9,7 +9,8 @@ the steal gate and `n_hungry == P` the exact BSP termination test.  Mode
 support histograms into the global one every `sync_period` supersteps and
 recomputes lambda (paper §4.4; staleness only costs work, never
 correctness).  The step counter is uniform across miners, so the JAX
-version's `lax.cond` on `(t + 1) % sync_period` is a Python `if` here.
+version's `lax.cond` on `(t + 1) % sync_period` is a Python `if` here,
+or, on a device step counter, a select.
 
 `recompute_lambda` serves both the device update (torch) and the host
 replay in `engine.postprocess_phase` (numpy).
@@ -49,19 +50,38 @@ def recompute_lambda(g_hist, thr, lam):
 def build_global_sync(*, mode: str, sync_period: int = 1, group=None):
     """Returns global_sync(t, st, thr), updating st.lam, st.g_hist_acc and
     st.hist_snap in place; the identity for modes other than "lamp1".
+    `t` is the superstep, a host int, or a 0-d device step counter (the
+    CUDA graph's): then the sync is computed every step and selected on
+    the device where (t + 1) % sync_period == 0.
     With a `group` (core.collectives.MinerGroup) the dim-0 sum of this
     process's miners is all-reduced over the processes."""
     if sync_period < 1:
         raise ValueError(f"sync_period must be >= 1, got {sync_period}")
 
-    def global_sync(t: int, st, thr):
-        if mode != "lamp1" or (t + 1) % sync_period != 0:
-            return
+    def folded(st, thr):
+        """(accumulator, lambda) with the histograms' delta since the last
+        sync folded in."""
         delta = (st.hist - st.hist_snap).sum(dim=0)
         if group is not None:
             delta = group.all_reduce_sum(delta)
-        st.g_hist_acc = st.g_hist_acc + delta
-        st.lam = recompute_lambda(st.g_hist_acc, thr, st.lam)
-        st.hist_snap = st.hist.clone()
+        acc = st.g_hist_acc + delta
+        return acc, recompute_lambda(acc, thr, st.lam)
+
+    def global_sync(t, st, thr):
+        if mode != "lamp1":
+            return
+        if isinstance(t, torch.Tensor):
+            # computed every step and kept where due: one CUDA graph
+            # serves both kinds of step
+            if group is not None:
+                raise ValueError("a multi-process sync needs the host's step")
+            due = torch.remainder(t + 1, sync_period) == 0
+            acc, lam = folded(st, thr)
+            st.lam = torch.where(due, lam, st.lam)
+            st.g_hist_acc = torch.where(due, acc, st.g_hist_acc)
+            st.hist_snap = torch.where(due, st.hist, st.hist_snap)
+        elif (t + 1) % sync_period == 0:
+            st.g_hist_acc, st.lam = folded(st, thr)
+            st.hist_snap = st.hist.clone()
 
     return global_sync

@@ -41,7 +41,9 @@ __all__ = ["build_steal_round"]
 def build_steal_round(schedule: LifelineSchedule, cfg, *, stack_cap: int, device,
                       group=None):
     """Returns steal_round(t, hungry_vec, st, any_hungry=True) -> (got, gave,
-    k_given, k_recv).
+    k_given, k_recv), which runs round t mod R of the schedule: `t` is the
+    superstep, a host int or a 0-d device step counter (the CUDA graph's,
+    where no round crosses processes).
 
     `hungry_vec` [P] is the superstep's global hunger census (1 per empty
     miner); `st` is the engine carry of this process's miners, whose
@@ -81,10 +83,23 @@ def build_steal_round(schedule: LifelineSchedule, cfg, *, stack_cap: int, device
     rows = torch.arange(T, device=device)
     pidx = torch.arange(PL, device=device)[:, None]
 
-    def steal_round(t: int, hungry_vec, st, any_hungry: bool = True):
-        r = t % R
+    def round_row(table, t):
+        """Round t's row of a [R, P] table: `t` a host int, or a 0-d
+        device step counter (a gather, so one CUDA graph serves every
+        round)."""
+        if isinstance(t, torch.Tensor):
+            return table.index_select(0, torch.remainder(t, R).view(1))[0]
+        return table[t % R]
+
+    def steal_round(t, hungry_vec, st, any_hungry: bool = True):
+        if isinstance(t, torch.Tensor):
+            if any(crosses):
+                raise ValueError("a round that crosses processes needs the host's step")
+            crossing = False
+        else:
+            crossing = crosses[t % R] and any_hungry
         # REQUEST, read out of the census
-        requester = req_src[r]
+        requester = round_row(req_src, t)
         req_in = torch.where(requester >= 0,
                              hungry_vec[torch.clamp(requester, 0, P - 1)], 0)
         donate = (req_in > 0) & (st.sp > 1)
@@ -97,11 +112,11 @@ def build_steal_round(schedule: LifelineSchedule, cfg, *, stack_cap: int, device
         st.head = advance_head(st.head, k, cap)
         st.sp = st.sp - k
         # GIVE/REJECT: gather each receiver's payload from its replier
-        if crosses[r] and any_hungry:
+        if crossing:
             k_all, pay_occ, pay_meta = group.all_gather(k, pay_occ, pay_meta)
-            replier, n_src = rep_global[r], P
+            replier, n_src = rep_global[t % R], P
         else:
-            k_all, replier, n_src = k, rep_local[r], PL
+            k_all, replier, n_src = k, round_row(rep_local, t), PL
         has = replier >= 0
         rsrc = torch.clamp(replier, 0, n_src - 1)
         recv_k = torch.where(has, k_all[rsrc], 0)

@@ -274,19 +274,29 @@ support_count_kernel(const uint32_t* __restrict__ occ,
   cp_async_wait<0>();
 }
 
-// Sets the instantiation's shared-memory limit, sizes its persistent grid
-// and launches it.
+constexpr int kMaxDevices = 64;
+
+// Raises the instantiation's shared-memory limit on device `dev` where the
+// launch needs more (never lowers it: a CUDA graph replays a captured
+// launch against the limit in force at the replay), sizes its persistent
+// grid and launches it.  The caller serialises calls (the wrapper's lock).
 template <int kItems, int kBlockW>
 cudaError_t launch(const void* occ, const void* db, void* out, int B, int M,
-                   int W, int warps, int sms, cudaStream_t stream) {
+                   int W, int warps, int dev, int sms, cudaStream_t stream) {
+  static size_t limit[kMaxDevices] = {};
   auto* kern = support_count_kernel<kItems, kBlockW>;
   const int threads = warps * 32;
   const int row_blocks = (B + 16 * warps - 1) / (16 * warps);
   const int ntiles = (M + kItems - 1) / kItems;
   const size_t bytes =
       static_cast<size_t>(Plan(W, warps, kItems, kBlockW).words()) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  cudaError_t err = cudaSuccess;
+  if (bytes > limit[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err == cudaSuccess) limit[dev] = bytes;
+  }
   int per_sm = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
@@ -328,12 +338,12 @@ int sc_support_count(const void* occ, const void* db, void* out, int B, int M,
   const int warps = block_b / 16;
   auto s = static_cast<cudaStream_t>(stream);
   switch (block_m * 1000 + block_w) {
-    case 32032: err = launch<32, 32>(occ, db, out, B, M, W, warps, sms, s); break;
-    case 32064: err = launch<32, 64>(occ, db, out, B, M, W, warps, sms, s); break;
-    case 64032: err = launch<64, 32>(occ, db, out, B, M, W, warps, sms, s); break;
-    case 64064: err = launch<64, 64>(occ, db, out, B, M, W, warps, sms, s); break;
-    case 128032: err = launch<128, 32>(occ, db, out, B, M, W, warps, sms, s); break;
-    case 128064: err = launch<128, 64>(occ, db, out, B, M, W, warps, sms, s); break;
+    case 32032: err = launch<32, 32>(occ, db, out, B, M, W, warps, dev, sms, s); break;
+    case 32064: err = launch<32, 64>(occ, db, out, B, M, W, warps, dev, sms, s); break;
+    case 64032: err = launch<64, 32>(occ, db, out, B, M, W, warps, dev, sms, s); break;
+    case 64064: err = launch<64, 64>(occ, db, out, B, M, W, warps, dev, sms, s); break;
+    case 128032: err = launch<128, 32>(occ, db, out, B, M, W, warps, dev, sms, s); break;
+    case 128064: err = launch<128, 64>(occ, db, out, B, M, W, warps, dev, sms, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

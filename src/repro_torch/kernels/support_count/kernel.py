@@ -16,7 +16,9 @@ only for tensors on the CPU.
 `launches` counts the kernel launches made through `support_count_cuda`,
 `launch_shapes` counts them by (B, M, W) and `launch_tiles` by (B, M, W,
 tile); a run resets them (`reset_counts`) and reads them to show that its
-path went through the kernel, at which shapes and with which tiles.
+path went through the kernel, at which shapes and with which tiles.  A
+launch captured into a CUDA graph is counted at each replay of the graph
+(`recording_launches`, `count_replayed`), not at the capture.
 
 The tile is a (block_b, block_m, block_w) triple (`autotune.py`): the
 caller's, or, given None, `autotune.choose_blocks` at the exact shape on
@@ -25,11 +27,12 @@ this card.
 Sessions may launch from several threads at once (a serving fleet runs one
 worker thread per session), so the library is built and loaded under one
 lock, once per process, and the counters are bumped under another.  The
-launch itself holds a third: the C function sets the dynamic
+launch itself holds a third: the C function raises the dynamic
 shared-memory limit of the tile's instantiation, a setting of the whole
-process, just before it launches, and another thread's smaller setting of
-the same instantiation in between would make the launch fail.  The lock
-covers every instantiation and is held only while the launch is enqueued.
+process, where the launch needs more, just before it launches, and never
+lowers it (a CUDA graph replays a captured launch against the limit in
+force then).  The lock covers every instantiation and is held only while
+the launch is enqueued.
 """
 
 from __future__ import annotations
@@ -43,14 +46,16 @@ import tempfile
 import threading
 import time
 from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
 
 from . import autotune
 
-__all__ = ["SOURCE", "NVCC_FLAGS", "build", "build_log", "launch_shapes",
-           "launch_tiles", "launches", "reset_counts", "support_count_cuda"]
+__all__ = ["SOURCE", "NVCC_FLAGS", "build", "build_log", "count_replayed",
+           "launch_shapes", "launch_tiles", "launches", "recording_launches",
+           "reset_counts", "support_count_cuda"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "support_count.cu"
 NVCC_FLAGS = (
@@ -74,6 +79,8 @@ _load_lock = threading.Lock()
 _count_lock = threading.Lock()
 #: held from the kernel's shared-memory setting to its launch (C side)
 _launch_lock = threading.Lock()
+#: a thread's launches recorded in a CUDA graph capture (`recording_launches`)
+_recording = threading.local()
 
 
 def _build_dir() -> Path:
@@ -152,10 +159,39 @@ def _load():
 
 def _count_launch(shape: tuple[int, int, int], tile: tuple[int, int, int]) -> None:
     global launches
+    recorded = getattr(_recording, "launches", None)
+    if recorded is not None:   # a CUDA graph capture: nothing launched yet
+        recorded[(shape, tile)] += 1
+        return
     with _count_lock:
         launches += 1
         launch_shapes[shape] += 1
         launch_tiles[(*shape, tile)] += 1
+
+
+@contextmanager
+def recording_launches():
+    """Within it, this thread's calls of `support_count_cuda` are recorded
+    into the Counter it yields, by ((B, M, W), tile), and not counted: a
+    CUDA graph capture calls the wrapper but launches nothing.  Each
+    replay of the graph then counts them with `count_replayed`."""
+    recorded = Counter()
+    _recording.launches = recorded
+    try:
+        yield recorded
+    finally:
+        _recording.launches = None
+
+
+def count_replayed(recorded: Counter) -> None:
+    """Count the launches `recording_launches` recorded, once more: a
+    replay of the graph they were captured into launched them."""
+    global launches
+    with _count_lock:
+        for (shape, tile), n in recorded.items():
+            launches += n
+            launch_shapes[shape] += n
+            launch_tiles[(*shape, tile)] += n
 
 
 def reset_counts() -> None:

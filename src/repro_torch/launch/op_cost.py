@@ -47,7 +47,7 @@ from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_mod
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["count_costs", "support_count_item"]
+__all__ = ["count_costs", "counting", "support_count_item"]
 
 _aten = torch.ops.aten
 #: allocations that touch no memory
@@ -166,6 +166,12 @@ def count_costs(fn, *args, **kw) -> dict:
     finally:
         _state.recorder = prev
     return rec.report()
+
+
+def counting() -> bool:
+    """True inside `count_costs` in this thread: the engine then runs its
+    supersteps eagerly, since a CUDA graph's replay dispatches no op."""
+    return getattr(_state, "recorder", None) is not None
 
 
 @contextmanager

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .base import TestStatistic, register_statistic, thresholds_from_bound
+from .fisher import as_float32
 
 __all__ = ["ChiSquared", "chi2_pvalue", "chi2_pvalue_torch"]
 
@@ -65,16 +66,16 @@ def chi2_pvalue(x, n, N, N_pos):
 def chi2_pvalue_torch(x: torch.Tensor, n: torch.Tensor, N, N_pos,
                       k_max: int | None = None) -> torch.Tensor:
     """Batched device P-value (float32) of int tensors x, n [B]; N, N_pos
-    ints.  Closed form — `k_max` (the static N_pos bound Fisher's summation
-    axis needs) is accepted and ignored, so both statistics share one
-    engine call signature."""
+    ints or 0-d integer device tensors.  Closed form — `k_max` (the static
+    N_pos bound Fisher's summation axis needs) is accepted and ignored, so
+    both statistics share one engine call signature."""
     del k_max
     f32 = torch.float32
     dev = x.device
     x = x.to(f32)
     n = n.to(f32)
-    N = torch.tensor(float(N), dtype=f32, device=dev)
-    N_pos = torch.tensor(float(N_pos), dtype=f32, device=dev)
+    N = as_float32(N, dev)
+    N_pos = as_float32(N_pos, dev)
     num = n * N - x * N_pos
     corr = torch.clamp(torch.abs(num) - N / 2.0, min=0.0)
     denom = x * (N - x) * N_pos * (N - N_pos)

@@ -22,6 +22,7 @@ from .base import TestStatistic, register_statistic
 
 __all__ = [
     "FisherExact",
+    "as_float32",
     "log_comb",
     "fisher_pvalue",
     "min_attainable_pvalue",
@@ -92,6 +93,15 @@ def lamp_count_thresholds(N, N_pos, alpha):
 
 
 # --------------------------------------------------------------------------- torch
+def as_float32(v, device) -> torch.Tensor:
+    """A count as a 0-d float32 tensor on `device`: a host number uploaded,
+    or a 0-d device tensor converted there (nothing crosses to the
+    device, so a CUDA graph can capture it)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32)
+    return torch.tensor(float(v), dtype=torch.float32, device=device)
+
+
 def _log_comb_torch(n: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     valid = (k >= 0) & (k <= n)
     kk = torch.where(valid, k, torch.zeros_like(k))
@@ -103,9 +113,11 @@ def fisher_pvalue_torch(x: torch.Tensor, n: torch.Tensor, N, N_pos,
                         k_max: int | None = None) -> torch.Tensor:
     """Batched one-sided Fisher exact P-value on the device (float32 log-space).
 
-    x, n: int tensors [B]; N, N_pos: ints.  The summation axis runs over
-    0..k_max (default N_pos); terms past the true N_pos are masked by
-    hi = min(x, N_pos), so the value does not depend on k_max.
+    x, n: int tensors [B]; N, N_pos: ints, or 0-d integer tensors on x's
+    device (a CUDA graph's operands; then k_max is required).  The
+    summation axis runs over 0..k_max (default N_pos); terms past the true
+    N_pos are masked by hi = min(x, N_pos), so the value does not depend
+    on k_max.
     """
     dev = x.device
     f32 = torch.float32
@@ -113,11 +125,14 @@ def fisher_pvalue_torch(x: torch.Tensor, n: torch.Tensor, N, N_pos,
     ni = torch.arange(ni_hi + 1, device=dev, dtype=torch.int32)[None, :]
     x32 = x.to(torch.int32)
     n32 = n.to(torch.int32)
-    hi = torch.clamp(x32, max=int(N_pos))[:, None]
+    if isinstance(N_pos, torch.Tensor):
+        hi = torch.minimum(x32, N_pos.to(torch.int32))[:, None]
+    else:
+        hi = torch.clamp(x32, max=int(N_pos))[:, None]
     mask = (ni >= n32[:, None]) & (ni <= hi)
-    npos_t = torch.tensor(float(N_pos), dtype=f32, device=dev)
-    nneg_t = torch.tensor(float(N - N_pos), dtype=f32, device=dev)
-    n_t = torch.tensor(float(N), dtype=f32, device=dev)
+    npos_t = as_float32(N_pos, dev)
+    nneg_t = as_float32(N - N_pos, dev)
+    n_t = as_float32(N, dev)
     xf = x32.to(f32)
     logp = (
         _log_comb_torch(npos_t, ni.to(f32))
