@@ -18,7 +18,7 @@ resolved `EngineConfig`, and with it the program cache key, is concrete.
 Resolution uses bucket dims, not exact dims, so same-bucket datasets share
 programs.
 `trace_period` and `ckpt_period` pass through into the resolved config, so
-traced, segmented and classic sessions never share a program.
+sessions of other trace or segment lengths never share a program.
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ class RuntimeConfig:
     trace_period: int = 0
     trace_cap: int = 0             # trace ring slots; 0 = default when tracing
     sync_period: int = 4           # supersteps between lambda/histogram syncs
-    #: checkpoint cadence (DESIGN.md §11): 0 = classic whole-phase loop;
+    #: checkpoint cadence (DESIGN.md §11): 0 = a pass of one segment;
     #: k > 0 runs segments of k supersteps, enabling frontier
     #: checkpoint/resume and cooperative soft deadlines
     ckpt_period: int = 0

@@ -63,11 +63,10 @@ from repro_torch.core.engine import (
     EngineConfig,
     MineOutput,
     build_mine_step,
-    make_program_args,
+    make_phase_args,
     make_schedule,
     postprocess_phase,
     run_segments,
-    segments_raw_output,
 )
 from repro_torch.device import resolve_device
 from repro_torch.obs import MetricsRegistry, SpanTracer
@@ -373,7 +372,7 @@ class MinerSession:
 
         `target` is a `ShapeBucket` or a `Dataset` (its bucket is warmed).
         Returns the number of programs actually built (0 = already warm).
-        A program — classic or segmented, as `ckpt_period` selects —
+        A program (its segment length `ckpt_period` part of the config)
         depends on the bucket and config only, so no data is packed;
         `alpha` is accepted for the JAX signature and unused.
         """
@@ -435,19 +434,15 @@ class MinerSession:
             get_statistic(statistic)  # actionable ValueError on typos
         t0 = time.perf_counter()
         alpha = self.algorithm.alpha if alpha is None else alpha
-        partial = resumed = False
+        resumed = False
         ckpt = {"writes": 0, "bytes": 0, "path": None}
         with self.tracer.span(f"phase:{mode}", dataset=dataset.name):
             cfg = self._resolve(dataset.bucket)
-            if (self._ckpt_dir or self._resume_from) and cfg.ckpt_period <= 0:
-                raise ValueError(
-                    "ckpt_dir/resume_from need the segmented program: set "
-                    "RuntimeConfig.ckpt_period > 0"
-                )
             with self.tracer.span("pack"):
-                args, ctx = make_program_args(
-                    dataset.packed, n_proc=self.n_miners, cfg=cfg, mode=mode,
-                    alpha=alpha, min_sup=min_sup, delta=delta * math.exp(band),
+                deal, ctx = make_phase_args(
+                    dataset.packed, n_proc=self.n_miners, cfg=cfg,
+                    stack_cap=cfg.stack_cap, mode=mode, alpha=alpha,
+                    min_sup=min_sup, delta=delta * math.exp(band),
                     statistic=statistic, tracer=self.tracer,
                 )
             if self.group is not None:
@@ -462,28 +457,31 @@ class MinerSession:
                         "segment host round-trip of the carry needs "
                         "allgather plumbing"
                     )
-                args = bootstrap.local_args(args, self.group)
+                deal = deal.miners(self.group.lo, self.group.hi)
             # the statistic gates only the emission of "test"/"count2d";
             # lamp1/count programs are statistic-free, shared under None
             stat_key = statistic if mode in ("test", "count2d") else None
             entry, hit = self._program(mode, dataset.bucket, cfg, stat_key)
-            graph = getattr(entry.compiled, "step_graph", None)
-            seen = (graph.replays, graph.graphs) if graph is not None else None
+            graph = entry.compiled.step_graph
+            seen = (graph.replays, graph.graphs)
             with self.tracer.span("dispatch", cache_hit=hit):
+                start, on_segment = deal, None
                 if cfg.ckpt_period > 0:
-                    raw, partial, resumed = self._run_segmented(
-                        entry, dataset, cfg, mode=mode, alpha=alpha,
+                    start, on_segment, resumed = self._checkpoints(
+                        deal, dataset, cfg, mode=mode, alpha=alpha,
                         delta=delta, statistic=statistic, ctx=ctx, ckpt=ckpt,
                     )
-                else:
-                    raw = entry.compiled(*args, tracer=self.tracer)
+                raw, partial = run_segments(
+                    entry.compiled, start, dataset.packed, ctx, cfg=cfg,
+                    should_stop=self._should_stop, on_segment=on_segment,
+                    tracer=self.tracer,
+                )
                 if self.group is not None:
                     # every process gathers the same full outputs, so
                     # postprocess (and the ResultSet) is identical everywhere
                     raw = bootstrap.fetch_outputs(raw, self.group)
-            if graph is not None:
-                self._m_replays.inc(graph.replays - seen[0])
-                self._m_graphs.inc(graph.graphs - seen[1])
+            self._m_replays.inc(graph.replays - seen[0])
+            self._m_graphs.inc(graph.graphs - seen[1])
             with self.tracer.span("postprocess"):
                 out = postprocess_phase(
                     raw, packed=dataset.packed, n_proc=self.n_miners, cfg=cfg,
@@ -529,18 +527,14 @@ class MinerSession:
             ckpt_path=ckpt["path"],
         )
 
-    def _run_segmented(self, entry, dataset, cfg, *, mode, alpha, delta,
-                       statistic, ctx, ckpt):
-        """Drive one phase through the segmented program (DESIGN.md §11).
-
-        Resumes the frontier from `self._resume_from` (elastically resharded
-        onto this session's miner count), checkpoints every segment into a
-        per-phase "<seq>_<mode>" subdir of `self._ckpt_dir`, and stops
-        cooperatively when `self._should_stop()` fires at a segment
-        boundary.  The carry stays on the device between segments and
-        comes to the host only for a checkpoint write.  Returns (raw
-        10-tuple, partial, resumed).
-        """
+    def _checkpoints(self, deal, dataset, cfg, *, mode, alpha, delta,
+                     statistic, ctx, ckpt):
+        """A segmented pass's checkpoints (DESIGN.md §11): its start, the
+        frontier restored from `self._resume_from` (elastically resharded
+        onto this session's miner count) where there is one, else `deal`;
+        and its `on_segment` writer into a per-phase "<seq>_<mode>" subdir
+        of `self._ckpt_dir`, which counts each write in `ckpt` and the
+        session's metrics.  Returns (start, on_segment, resumed)."""
         from repro_torch.ckpt import mining as ckpt_mining
 
         tag = f"{self._phase_seq:02d}_{mode}"
@@ -549,8 +543,7 @@ class MinerSession:
             dataset.packed, mode=mode, statistic=statistic, alpha=alpha,
             start_sup=ctx["start_sup"], delta=delta,
         )
-        carry = ctx["carry0"]
-        resumed = False
+        start, resumed = deal, False
         if self._resume_from:
             t0r = time.perf_counter()
             restored = ckpt_mining.restore_frontier(
@@ -559,31 +552,20 @@ class MinerSession:
             )
             self._m_ckpt_restore.observe(time.perf_counter() - t0r)
             if restored is not None:
-                carry = restored
-                resumed = True
-        on_segment = None
-        if self._ckpt_dir:
-            phase_dir = os.path.join(self._ckpt_dir, tag)
+                start, resumed = restored, True
+        if not self._ckpt_dir:
+            return start, None, resumed
 
-            def on_segment(c):
-                t0w = time.perf_counter()
-                path, nbytes = ckpt_mining.save_frontier(
-                    c.to_fields(), phase_dir, provenance=provenance,
-                )
-                self._m_ckpt_write.observe(time.perf_counter() - t0w)
-                self._m_ckpt_bytes.inc(nbytes)
-                ckpt["writes"] += 1
-                ckpt["bytes"] += nbytes
-                ckpt["path"] = path
+        def written(path, nbytes, seconds):
+            self._m_ckpt_write.observe(seconds)
+            self._m_ckpt_bytes.inc(nbytes)
+            ckpt["writes"] += 1
+            ckpt["bytes"] += nbytes
+            ckpt["path"] = path
 
-        carry, partial = run_segments(
-            entry.compiled, carry, cfg=cfg, static=ctx["static"],
-            should_stop=self._should_stop, on_segment=on_segment,
-            tracer=self.tracer,
-        )
-        with self.tracer.span("outputs"):
-            raw = segments_raw_output(carry)
-        return raw, partial, resumed
+        return start, ckpt_mining.frontier_writer(
+            os.path.join(self._ckpt_dir, tag), provenance=provenance,
+            written=written), resumed
 
     # --------------------------------------------------------------- queries
     def run(self, dataset: Dataset, query: Query, *, stream=None,
@@ -607,7 +589,7 @@ class MinerSession:
         stops the query cooperatively, returning a partial MineReport
         (report.partial, results.complete == False) plus the checkpoint
         path to resume from.  `should_stop` is ignored when ckpt_period ==
-        0 (the classic loop has no boundary to stop at).
+        0 (a pass of one segment has no boundary to stop at).
         """
         if not isinstance(query, Query):
             raise TypeError(

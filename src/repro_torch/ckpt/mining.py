@@ -32,6 +32,7 @@ elastic resharding
 from __future__ import annotations
 
 import hashlib
+import time
 
 import numpy as np
 
@@ -45,6 +46,7 @@ __all__ = [
     "FORMAT",
     "ProvenanceMismatch",
     "dataset_fingerprint",
+    "frontier_writer",
     "make_provenance",
     "reshard_frontier",
     "restore_frontier",
@@ -122,6 +124,21 @@ def save_frontier(
     path = checkpoint.save(carry, directory, step, meta=meta, keep=keep)
     nbytes = int(sum(np.asarray(v).nbytes for v in carry.values()))
     return path, nbytes
+
+
+def frontier_writer(directory: str, *, provenance: dict, keep: int = 3,
+                    written=None):
+    """A pass's `on_segment` hook (`engine.run_segments`): each segment's
+    device carry saved as a frontier step of `directory`.  `written(path,
+    nbytes, seconds)`, where given, hears of every write."""
+    def on_segment(carry):
+        t0 = time.perf_counter()
+        path, nbytes = save_frontier(carry.to_fields(), directory,
+                                     provenance=provenance, keep=keep)
+        if written is not None:
+            written(path, nbytes, time.perf_counter() - t0)
+
+    return on_segment
 
 
 def load_frontier(directory: str, step: int):

@@ -32,13 +32,16 @@ multi-process group, the sampled trace record, a serving fleet's worker
 stream) and while `launch.op_cost` counts, which sees only the operators
 it dispatches.
 
-With `ckpt_period > 0` the pass runs *segmented* (DESIGN.md §11): the loop
-stops every ckpt_period supersteps, where `run_segments` fires the
-engine.superstep fault point, hands the carry to a checkpoint writer and
-polls a cooperative stop.  The carry stays on the device between segments;
+Every pass runs through one driver, `run_segments`, and one program: the
+driver builds the pass's carry, runs it in segments of `ckpt_period`
+supersteps (one segment when it is 0) and reads the outputs of the
+terminal carry (`read_outputs`).  Between segments (DESIGN.md §11) it
+fires the engine.superstep fault point, hands the carry to a checkpoint
+writer and polls a cooperative stop; the carry stays on the device.
 `_Carry.to_fields`/`from_fields` map it to and from the JAX package's
 host carry dict (`CARRY_FIELDS`), which is the checkpoint format both
-packages share.
+packages share; every leaf of the carry is declared once, in
+`CARRY_LEAVES`.
 
 Modes:
   lamp1   dynamic lambda by support increase  -> lambda_final
@@ -60,10 +63,10 @@ and the outputs (see `repro_torch.topo.bootstrap`).
 from __future__ import annotations
 
 import copy
-import functools
 import threading
 import warnings
 from dataclasses import dataclass, field, replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -125,8 +128,8 @@ class EngineConfig:
     trace_period: int = 0
     trace_cap: int = 0             # ring slots; required > 0 when tracing
     sync_period: int = 4           # supersteps between lambda/histogram syncs
-    #: checkpoint cadence (DESIGN.md §11): 0 = the classic whole-phase
-    #: loop; k > 0 runs the pass in segments of k supersteps, at whose
+    #: checkpoint cadence (DESIGN.md §11): 0 = the pass runs as one
+    #: segment; k > 0 runs it in segments of k supersteps, at whose
     #: boundaries the frontier can be checkpointed and a cooperative stop
     #: polled.  Part of the session's program cache key.
     ckpt_period: int = 0
@@ -136,23 +139,79 @@ class EngineConfig:
     topology: object | None = None
 
 
-#: the BSP carry's leaf names, in carry-tuple order — the JAX package's
-#: frontier schema (`repro.core.engine.CARRY_FIELDS`), shared by the
-#: segment loop and the checkpoint mapping (ckpt/mining.py).  Per-miner
-#: scalars (sp, head, lam, t, out_ptr, n_sig, work) are [P] vectors.
-CARRY_FIELDS = (
-    "occ_stack", "meta", "sp", "head", "hist", "hist_snap", "g_hist_acc",
-    "hist2d", "lam", "t", "stats", "out_occ", "out_meta", "out_ptr",
-    "n_sig", "trace", "work",
-)
+class _Leaf(NamedTuple):
+    """One leaf of the BSP carry: its name, its device form (a key of
+    `_FORMS`) and whether a superstep writes it."""
 
-#: the carry's device leaves a superstep writes (the sampled trace record
-#: aside): where a CUDA graph replays the superstep, these live at fixed
-#: addresses
-STEP_FIELDS = (
-    "occ_stack", "meta", "sp", "head", "hist", "hist_snap", "g_hist_acc",
-    "hist2d", "lam", "stats", "out_occ", "out_meta", "out_ptr", "n_sig",
+    name: str
+    form: str
+    step: bool = True
+
+
+#: the BSP carry's leaves, in carry-tuple order: the JAX package's frontier
+#: schema (`repro.core.engine.CARRY_FIELDS`), which is the checkpoint
+#: format (ckpt/mining.py).  A leaf is written by a superstep unless it
+#: says otherwise; where a CUDA graph replays the superstep, those leaves
+#: live at fixed addresses (`_Carry.assign`, `_rebound_back`).  The
+#: sampled trace record writes the ring, but never in a replay.
+CARRY_LEAVES = (
+    _Leaf("occ_stack", "words"),
+    _Leaf("meta", "rows"),
+    _Leaf("sp", "count"),
+    _Leaf("head", "count"),
+    _Leaf("hist", "count"),
+    _Leaf("hist_snap", "count"),
+    _Leaf("g_hist_acc", "shared"),
+    _Leaf("hist2d", "count"),
+    _Leaf("lam", "scalar"),
+    _Leaf("t", "host", step=False),
+    _Leaf("stats", "count"),
+    _Leaf("out_occ", "words"),
+    _Leaf("out_meta", "rows"),
+    _Leaf("out_ptr", "count"),
+    _Leaf("n_sig", "count"),
+    _Leaf("trace", "ring", step=False),
+    _Leaf("work", "host", step=False),
 )
+CARRY_FIELDS = tuple(leaf.name for leaf in CARRY_LEAVES)
+STEP_FIELDS = tuple(leaf.name for leaf in CARRY_LEAVES if leaf.step)
+
+
+def _spill(x: torch.Tensor) -> torch.Tensor:
+    """[P, R, C] -> [P, R + 1, C]: a zero spill row appended on the device."""
+    return torch.cat([x, x.new_zeros((x.shape[0], 1, x.shape[2]))], dim=1)
+
+
+def _i32(x: torch.Tensor) -> np.ndarray:
+    return x.to(torch.int32).cpu().numpy()
+
+
+#: a leaf's device form -> (device leaf, P -> host leaf; host leaf, upload,
+#: device -> device leaf), the host leaf being the JAX carry's [P, ...]
+#: int32 / uint32 array.  `upload(a, dtype)` moves `a` to the device
+#: (uint32 words as int32 of the same bits) and counts its bytes.
+_FORMS = {
+    # [P, R + 1, W] int32 bits with a spill row <-> [P, R, W] uint32 words
+    "words": (lambda x, P: tensor_to_words(x[:, :-1]),
+              lambda a, up, dev: _spill(up(a, np.uint32))),
+    # [P, R + 1, C] int32 with a spill row <-> [P, R, C] int32
+    "rows": (lambda x, P: x[:, :-1].cpu().numpy(),
+             lambda a, up, dev: _spill(up(a, np.int32))),
+    # [P, ...] int64 counters <-> int32, wrapping
+    "count": (lambda x, P: _i32(x), lambda a, up, dev: up(a, np.int64)),
+    # one int64 row, uniform over the miners <-> [P, ...] int32
+    "shared": (lambda x, P: np.tile(_i32(x), (P, 1)),
+               lambda a, up, dev: up(a[0], np.int64)),
+    # a 0-d int64 tensor, uniform over the miners <-> [P] int32
+    "scalar": (lambda x, P: np.full(P, int(x), np.int32),
+               lambda a, up, dev: torch.full((), int(a[0]), dtype=torch.int64,
+                                             device=dev)),
+    # the trace ring [P, slots, N_FIELDS] int32, as it is
+    "ring": (lambda x, P: x.cpu().numpy(), lambda a, up, dev: up(a, np.int32)),
+    # a host int, uniform over the miners <-> [P] int32
+    "host": (lambda x, P: np.full(P, x, np.int32), lambda a, up, dev: int(a[0])),
+}
+_FORM_OF = {leaf.name: _FORMS[leaf.form] for leaf in CARRY_LEAVES}
 
 
 def make_schedule(cfg: EngineConfig, n_proc: int) -> LifelineSchedule:
@@ -486,7 +545,9 @@ class _Carry:
     stacks and record buffers with a trailing spill row, the counters
     int64), lambda and the replicated lamp1 accumulator `g_hist_acc` held
     once — they are uniform across miners, as in the JAX engine — and the
-    superstep counter `t` and the boundary census `work` as host ints."""
+    superstep counter `t` and the boundary census `work` as host ints: the
+    leaves of `CARRY_LEAVES`.  A pass's carry also holds the pass's
+    operands, `ops` (the program's `start` sets them)."""
 
     def __init__(self, *, deal: RootDeal, db_tiles, lam0, nb, snb, nb2,
                  out_cap, trace_cap, device):
@@ -527,49 +588,29 @@ class _Carry:
         self.work = int((deal.sp > 0).sum())
 
     def to_fields(self, names=CARRY_FIELDS) -> dict[str, np.ndarray]:
-        """The JAX package's host carry dict (leaves `names`): spill rows
-        dropped, counters cast to int32 with wraparound, words as uint32,
-        per-miner scalars and the replicated leaves as [P] / [P, SNB]."""
+        """The JAX package's host carry dict (leaves `names`), each leaf as
+        its form in `CARRY_LEAVES` maps it: spill rows dropped, counters
+        cast to int32 with wraparound, words as uint32, per-miner scalars
+        and the replicated leaves as [P] / [P, SNB]."""
         P = self.sp.shape[0]
-        cap, out_cap = self.occ_stack.shape[1] - 1, self.out_occ.shape[1] - 1
-
-        def i32(x):
-            return x.to(torch.int32).cpu().numpy()
-
-        leaves = {
-            "occ_stack": lambda: tensor_to_words(self.occ_stack[:, :cap]),
-            "meta": lambda: self.meta[:, :cap].cpu().numpy(),
-            "sp": lambda: i32(self.sp),
-            "head": lambda: i32(self.head),
-            "hist": lambda: i32(self.hist),
-            "hist_snap": lambda: i32(self.hist_snap),
-            "g_hist_acc": lambda: np.tile(i32(self.g_hist_acc), (P, 1)),
-            "hist2d": lambda: i32(self.hist2d),
-            "lam": lambda: np.full(P, int(self.lam), np.int32),
-            "t": lambda: np.full(P, self.t, np.int32),
-            "stats": lambda: i32(self.stats),
-            "out_occ": lambda: tensor_to_words(self.out_occ[:, :out_cap]),
-            "out_meta": lambda: self.out_meta[:, :out_cap].cpu().numpy(),
-            "out_ptr": lambda: i32(self.out_ptr),
-            "n_sig": lambda: i32(self.n_sig),
-            "trace": lambda: self.trace.cpu().numpy(),
-            "work": lambda: np.full(P, self.work, np.int32),
-        }
-        return {k: leaves[k]() for k in names}
+        return {k: _FORM_OF[k][0](getattr(self, k), P) for k in names}
 
     def assign(self, other: "_Carry") -> None:
-        """Take `other`'s state into this carry's own buffers (the leaves a
-        superstep writes; the trace ring, which it does not, by reference)."""
-        for name in STEP_FIELDS:
-            getattr(self, name).copy_(getattr(other, name))
-        self.trace, self.t, self.work = other.trace, other.t, other.work
+        """Take `other`'s state: the leaves a superstep writes into this
+        carry's own buffers, the others and the pass's operands `ops` by
+        reference."""
+        for leaf in CARRY_LEAVES:
+            if leaf.step:
+                getattr(self, leaf.name).copy_(getattr(other, leaf.name))
+            else:
+                setattr(self, leaf.name, getattr(other, leaf.name))
+        self.ops = other.ops
 
     @classmethod
     def from_fields(cls, d: dict, device) -> "_Carry":
         """The inverse of `to_fields`: a carry on `device` from a host carry
         dict (CARRY_FIELDS), written by either package."""
         st = cls.__new__(cls)
-        P, _, w = d["occ_stack"].shape
         st.h2d_bytes = 0
 
         def up(a, dtype):   # words (uint32) go up as int32 of the same bits
@@ -578,35 +619,9 @@ class _Carry:
             st.h2d_bytes += t.nbytes
             return t.to(device)
 
-        def i64(a):
-            return up(a, np.int64)
-
-        def i32(a):
-            return up(a, np.int32)
-
-        def with_spill(x, cols):
-            return torch.cat([x, torch.zeros((P, 1, cols), dtype=torch.int32,
-                                             device=device)], dim=1)
-
-        st.occ_stack = with_spill(up(d["occ_stack"], np.uint32), w)
-        st.meta = with_spill(i32(d["meta"]), 4)
-        st.sp, st.head = i64(d["sp"]), i64(d["head"])
-        st.hist, st.hist_snap = i64(d["hist"]), i64(d["hist_snap"])
-        st.g_hist_acc = i64(d["g_hist_acc"][0])
-        st.hist2d = i64(d["hist2d"])
-        st.lam = torch.full((), int(d["lam"][0]), dtype=torch.int64, device=device)
-        st.t = int(d["t"][0])
-        st.stats = i64(d["stats"])
-        st.out_occ = with_spill(up(d["out_occ"], np.uint32), w)
-        st.out_meta = with_spill(i32(d["out_meta"]), 3)
-        st.out_ptr, st.n_sig = i64(d["out_ptr"]), i64(d["n_sig"])
-        st.trace = i32(d["trace"])
-        st.work = int(d["work"][0])
+        for k in CARRY_FIELDS:
+            setattr(st, k, _FORM_OF[k][1](d[k], up, device))
         return st
-
-
-def _thr_tensor(thr, device) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(thr, np.int64)).to(device)
 
 
 def step_graphs(device: torch.device, group, cfg: EngineConfig) -> bool:
@@ -644,12 +659,12 @@ class _StepGraph:
     """A program's superstep as one CUDA graph, replayed step after step.
 
     A graph replays fixed addresses and frozen scalars, so the superstep
-    runs on buffers the program owns: `carry` (the first carry the program
-    ran; each later one is copied into it, and the program hands `carry`
+    runs on buffers the program owns: `carry` (the first pass's carry;
+    each later pass's is copied into it, and the program hands `carry`
     back), `ops` (the database, positives, thresholds, delta and the
-    dataset's N and N_pos as device tensors, copied in before every run),
-    the step counter `t` (set from the host's before every run, advanced
-    by the step) and `census` (the hunger census, the graph's one output).
+    dataset's N and N_pos as device tensors), the step counter `t` (all
+    three loaded once a pass, `t` then advanced by the step) and `census`
+    (the hunger census, the graph's one output).
     The step body writes the leaves it rebinds back into `carry`
     (`_rebound_back`); nothing else the graph allocates outlives a replay.
 
@@ -672,27 +687,22 @@ class _StepGraph:
         self.replays = 0
         self.graphs = 0
 
-    def load(self, st: _Carry, db_tiles, pos_mask, thr_t, delta_t, n_act,
-             npos_act) -> _Carry:
-        """Take the run's carry and operands into the program's buffers;
-        returns the carry the run goes on with."""
+    def load(self, st: _Carry) -> _Carry:
+        """Take a pass's carry and its operands into the program's buffers,
+        at the pass's start; returns the carry the pass goes on with."""
         if self.carry is None:
             self.carry = st
             i64 = torch.int64
-            self.ops = (torch.empty_like(db_tiles), torch.empty_like(pos_mask),
-                        torch.empty_like(thr_t), torch.empty_like(delta_t),
-                        torch.empty((), dtype=i64, device=self.device),
-                        torch.empty((), dtype=i64, device=self.device))
-        elif st is not self.carry:
+            self.ops = tuple(torch.empty_like(x) for x in st.ops[:4]) + tuple(
+                torch.empty((), dtype=i64, device=self.device) for _ in range(2))
+        else:
             self.carry.assign(st)
-        db, pm, thr, delta, n, npos = self.ops
-        db.copy_(db_tiles)
-        pm.copy_(pos_mask)
-        thr.copy_(thr_t)
-        delta.copy_(delta_t)
-        n.fill_(int(n_act))
-        npos.fill_(int(npos_act))
-        self.t.fill_(self.carry.t)
+        for buf, x in zip(self.ops, st.ops):
+            if isinstance(x, torch.Tensor):
+                buf.copy_(x)
+            else:   # N, N_pos
+                buf.fill_(int(x))
+        self.t.fill_(st.t)
         return self.carry
 
     def step(self, body) -> torch.Tensor | None:
@@ -739,33 +749,29 @@ def build_mine_step(
     """Wire the superstep phases into the BSP program for P miners.
 
     `n`/`n_pos`/`m` are the program dims; the dataset's actual counts are
-    runtime arguments of the returned program.  With ckpt_period == 0 the
-    program runs the host superstep loop to termination and returns the raw
-    10-tuple of numpy arrays that `postprocess_phase` takes (the JAX
-    program's outputs).  With ckpt_period > 0 it is the segment program
-    `seg(carry, db_tiles, pos_mask, thr, delta, n_act, npos_act, t_stop)`,
-    which advances a `_Carry` to superstep t_stop (or until the frontier
-    drains) and returns it: in place, or, where the program replays CUDA
-    graphs, as the program's own carry, into which it was copied.
+    operands of each pass.  The program `program(carry, t_stop, *,
+    tracer)` advances a pass's `_Carry` to superstep t_stop, or until the
+    frontier drains, and returns it: in place, or, where the program
+    replays CUDA graphs, as the program's own carry, into which the pass's
+    first segment copied it.  `program.start(start, packed, ctx)` builds
+    the pass's carry, with its operands; `run_segments` drives both.
 
     Where `step_graphs` holds, the program's supersteps after its first
     are replays of one CUDA graph (`_StepGraph`, the program's
-    `step_graph` attribute; None elsewhere), in the runs made on the
-    default stream and outside `op_cost.count_costs`.
+    `step_graph` attribute, whose counters say how many), in the runs
+    made on the default stream and outside `op_cost.count_costs`.
 
-    Either program takes a keyword `tracer` (`obs.SpanTracer`; default
-    `NULL_TRACER`) and records into it, beneath the caller's spans: the
-    classic program's `carry` (the carry allocated and the dealt roots
-    placed; arg `bytes`, what it uploaded) and `outputs` (read back to
-    the host), and in both one `superstep` span per iteration (args `t`,
-    `graph`, true for a replay, and `fired` where stealing is on) holding
-    `census.read`, the host's one wait on the device a superstep, and,
-    where the superstep runs eagerly, `expand`, `steal` and `global`.
+    The program takes a keyword `tracer` (`obs.SpanTracer`; default
+    `NULL_TRACER`) and records into it one `superstep` span per
+    iteration (args `t`, `graph`, true for a replay, and `fired` where
+    stealing is on) holding `census.read`, the host's one wait on the
+    device a superstep, and, where the superstep runs eagerly, `expand`,
+    `steal` and `global`.
 
-    `group` (a `core.collectives.MinerGroup`, classic program only) runs
-    this process's block of the schedule's P miners: the program then
-    takes that block's dealt roots (`topo.bootstrap.local_args`) and
-    returns its own rows and sums, which
+    `group` (a `core.collectives.MinerGroup`; unsegmented passes only)
+    runs this process's block of the schedule's P miners: the pass then
+    starts from that block's dealt roots (`RootDeal.miners`)
+    and its outputs are its own rows and sums, which
     `topo.bootstrap.fetch_outputs` gathers.  The loop reads the global
     census, so every process runs the same supersteps.
     """
@@ -782,7 +788,7 @@ def build_mine_step(
     n_proc = schedule.n_proc
     if group is not None and (cfg.ckpt_period > 0 or group.n_miners != n_proc):
         raise ValueError(
-            "a multi-process group runs the classic program over the "
+            "a multi-process group runs unsegmented passes over the "
             "schedule's P miners"
         )
     n_rows = n_proc if group is None else group.n_local  # carry rows here
@@ -864,29 +870,27 @@ def build_mine_step(
             t.add_(1)
         return n_hungry, n_hungry_host
 
-    step_graph = _StepGraph(device) if step_graphs(device, group, cfg) else None
+    step_graph = _StepGraph(device)
+    graphs = step_graphs(device, group, cfg)
     no_span = NULL_TRACER.span
 
-    def run_to(st, t_stop, db_tiles, pos_mask, thr_t, delta_t, n_act, npos_act,
-               tracer):
+    def body(view):   # the superstep a graph captures
+        return superstep(view, step_graph.t, step_graph.ops, no_span)[0]
+
+    def program(st, t_stop, *, tracer=NULL_TRACER):
         # `work` (miners with work) is read back once per superstep: the
         # loop's only device -> host sync
         span = tracer.span
-        ops = (db_tiles, pos_mask, thr_t, delta_t, n_act, npos_act)
-        g = (step_graph if step_graph is not None and not op_cost.counting()
+        g = (step_graph if graphs and not op_cost.counting()
              and on_default_stream(device) else None)
-        if g is not None:
-            st = g.load(st, *ops)
-
-            def body(view):
-                return superstep(view, g.t, g.ops, no_span)[0]
-
+        if g is not None and st is not g.carry:   # the pass's first segment
+            st = g.load(st)
         while st.work > 0 and st.t < t_stop:
             t = st.t
             replay = g is not None and g.graph is not None
             with span("superstep", t=t, graph=replay) as step_args:
                 if g is None:
-                    n_hungry, n_hungry_host = superstep(st, t, ops, span)
+                    n_hungry, n_hungry_host = superstep(st, t, st.ops, span)
                 else:
                     n_hungry, n_hungry_host = g.step(body), None
                 if n_hungry_host is None:
@@ -898,47 +902,30 @@ def build_mine_step(
                     step_args["fired"] = n_hungry_host > 0
         return st
 
-    def program(deal, db_tiles, pos_mask, thr, lam0, delta, n_act, npos_act, *,
-                tracer=NULL_TRACER):
-        with tracer.span("carry") as carry_args:
-            st = _Carry(deal=deal, db_tiles=db_tiles, lam0=lam0, **dims,
-                        out_cap=cfg.out_cap, trace_cap=tcap, device=device)
+    def start(begin, packed: PackedProblem, ctx: dict) -> _Carry:
+        """The pass's starting carry on the program's device, from `begin`:
+        a `RootDeal` (with a group, this process's block of it) or a
+        restored host carry dict.  It holds the pass's operands `ops`:
+        the database, positives, thresholds, the gate's delta, N and
+        N_pos; `h2d_bytes` counts what it uploaded."""
+        if isinstance(begin, dict):
+            st = _Carry.from_fields(begin, device)
+        else:
+            st = _Carry(deal=begin, db_tiles=packed.db_dev, lam0=ctx["start_sup"],
+                        **dims, out_cap=cfg.out_cap, trace_cap=tcap, device=device)
             if group is not None:  # the census over every process's miners
                 st.work = group.sum_int(st.work)
-            delta_t = torch.tensor(delta, dtype=torch.float32, device=device)
-            thr_t = _thr_tensor(thr, device)
-            if carry_args is not None:
-                carry_args["bytes"] = st.h2d_bytes + delta_t.nbytes + thr_t.nbytes
-        st = run_to(st, cfg.max_steps, db_tiles, pos_mask, thr_t, delta_t, n_act,
-                    npos_act, tracer)
-        # one exact full-histogram sum at termination
-        i32 = np.int32
-        out_cap = cfg.out_cap
-        with tracer.span("outputs"):
-            return (
-                st.hist.sum(dim=0).cpu().numpy().astype(i32),
-                int(st.lam),
-                st.t,
-                st.stats.cpu().numpy().astype(i32),
-                tensor_to_words(st.out_occ[:, :out_cap]),
-                st.out_meta[:, :out_cap].cpu().numpy(),
-                st.out_ptr.cpu().numpy().astype(i32),
-                int(st.n_sig.sum()),
-                st.trace.cpu().numpy() if period else None,
-                st.hist2d.sum(dim=0).cpu().numpy().astype(i32),
-            )
+        delta_t = torch.tensor(ctx["gate"], dtype=torch.float32, device=device)
+        thr_t = torch.from_numpy(np.asarray(ctx["thr"], np.int64)).to(device)
+        st.ops = (packed.db_dev, packed.pos_mask_dev, thr_t, delta_t, packed.n,
+                  packed.n_pos)
+        st.h2d_bytes += delta_t.nbytes + thr_t.nbytes
+        return st
 
-    def seg_program(st, db_tiles, pos_mask, thr, delta, n_act, npos_act, t_stop,
-                    *, tracer=NULL_TRACER):
-        delta_t = torch.tensor(delta, dtype=torch.float32, device=device)
-        return run_to(st, t_stop, db_tiles, pos_mask, _thr_tensor(thr, device),
-                      delta_t, n_act, npos_act, tracer)
-
-    prog = seg_program if cfg.ckpt_period > 0 else program
-    # the program's `_StepGraph` (its replay and capture counts), None
-    # where its supersteps run eagerly
-    prog.step_graph = step_graph
-    return prog
+    program.start = start
+    # the program's `_StepGraph`: its replay and capture counts
+    program.step_graph = step_graph
+    return program
 
 
 def make_phase_args(
@@ -954,11 +941,13 @@ def make_phase_args(
     statistic: str | None = "fisher",
     tracer=NULL_TRACER,
 ):
-    """Build the program argument tuple (and the postprocess context).
+    """A pass's root deal and context.
 
-    Returns (args, ctx) with ctx = dict(thr, start_sup) for postprocess;
-    args[0] is the `RootDeal`.  The root deal is the `roots` span of
-    `tracer` (arg `dealt`, the roots dealt).
+    Returns (deal, ctx): the `RootDeal` the pass starts from, and ctx =
+    dict(thr, start_sup, gate), the thresholds, the pass's starting
+    support (its starting lambda) and the device gate's delta in float32,
+    which `run_segments` takes and postprocess reads.  The root deal is
+    the `roots` span of `tracer` (arg `dealt`, the roots dealt).
     """
     start_sup = min_sup if mode != "lamp1" else 1
     with tracer.span("roots") as roots_args:
@@ -968,92 +957,89 @@ def make_phase_args(
     thr = _thresholds_int(packed.n, packed.n_pos, alpha, statistic)
     thr_pad = np.full(packed.n_pad + 2, INT_MAX, dtype=np.int32)
     thr_pad[: thr.shape[0]] = thr
-    args = (
-        deal, packed.db_dev, packed.pos_mask_dev, thr_pad,
-        int(start_sup), float(np.float32(delta)),
-        int(packed.n), int(packed.n_pos),
-    )
-    return args, dict(thr=thr_pad, start_sup=start_sup)
+    return deal, dict(thr=thr_pad, start_sup=int(start_sup),
+                      gate=float(np.float32(delta)))
 
 
-def make_program_args(
-    packed: PackedProblem,
-    *,
-    n_proc: int,
-    cfg: EngineConfig,
-    mode: str,
-    alpha: float,
-    min_sup: int,
-    delta: float,
-    statistic: str | None = "fisher",
-    tracer=NULL_TRACER,
-):
-    """`make_phase_args`, shaped for whichever program cfg selects (cfg is
-    resolved: its stack_cap is an int).
+class PassOutput(NamedTuple):
+    """What a pass returns, read from its terminal carry (`read_outputs`):
+    the JAX program's outputs, in their order."""
 
-    ckpt_period == 0: identical to `make_phase_args`.  ckpt_period > 0:
-    ctx gains `carry0`, which builds the starting `_Carry` when called
-    (the classic program's own, whose `to_fields()` is the JAX package's
-    `init_carry`), and `static` (the operands `run_segments` passes every
-    segment: db_tiles, pos_mask, thr, delta, n_act, npos_act — lam0 rides
-    the carry instead).
-    """
-    args, ctx = make_phase_args(
-        packed, n_proc=n_proc, cfg=cfg, stack_cap=cfg.stack_cap, mode=mode,
-        alpha=alpha, min_sup=min_sup, delta=delta, statistic=statistic,
-        tracer=tracer,
+    hist: np.ndarray           # [NB] int32 histogram summed over the miners
+    lam: int
+    t: int                     # supersteps
+    stats: np.ndarray          # [P, NSTAT] int32 per-miner counters
+    out_occ: np.ndarray        # [P, out_cap, W] uint32 emitted occurrences
+    out_meta: np.ndarray       # [P, out_cap, 3] int32 (core, sup, pos_sup)
+    out_ptr: np.ndarray        # [P] int32 records emitted
+    n_sig: int
+    trace: np.ndarray | None   # the trace ring; None when tracing is off
+    hist2d: np.ndarray         # [NB2] int32 2-D histogram summed over the miners
+
+
+def read_outputs(st: _Carry, traced: bool) -> PassOutput:
+    """A terminal carry's outputs on the host: one exact sum over the
+    miners on the device for the histograms and the emitted count, the
+    per-miner rows read back (the trace ring only when `traced`)."""
+    i32 = np.int32
+    return PassOutput(
+        st.hist.sum(dim=0).cpu().numpy().astype(i32),
+        int(st.lam),
+        st.t,
+        st.stats.cpu().numpy().astype(i32),
+        tensor_to_words(st.out_occ[:, :-1]),
+        st.out_meta[:, :-1].cpu().numpy(),
+        st.out_ptr.cpu().numpy().astype(i32),
+        int(st.n_sig.sum()),
+        st.trace.cpu().numpy() if traced else None,
+        st.hist2d.sum(dim=0).cpu().numpy().astype(i32),
     )
-    if cfg.ckpt_period <= 0:
-        return args, ctx
-    carry0 = functools.partial(
-        _Carry, deal=args[0], db_tiles=packed.db_dev, lam0=ctx["start_sup"],
-        **carry_dims(packed.n_pad, packed.npos_pad, mode), out_cap=cfg.out_cap,
-        trace_cap=cfg.trace_cap, device=packed.device,
-    )
-    static = args[1:4] + args[5:8]
-    return args, dict(ctx, carry0=carry0, static=static)
 
 
 def run_segments(
-    dispatch,
-    carry,
+    program,
+    start,
+    packed: PackedProblem,
+    ctx: dict,
     *,
     cfg: EngineConfig,
-    static: tuple,
     should_stop=None,
     on_segment=None,
     tracer=NULL_TRACER,
 ):
-    """Host loop driving the segmented program to frontier exhaustion.
+    """Run one engine pass of `program` (`build_mine_step`): the one way a
+    pass runs.
 
-    `carry` is a host carry dict (CARRY_FIELDS: a restored frontier),
-    moved once to the device of `static`'s database, or `make_program_args`'
-    `carry0`, called to build the starting carry there.  Each iteration
-    runs one ckpt_period-superstep
-    segment, fires the engine.superstep fault point, then hands the
-    device carry to `on_segment` (the checkpoint writer, which pulls it to
-    the host with `to_fields()`) — in that order, so an injected death
-    loses the running segment's checkpoint, the harshest recovery case.
-    `should_stop` is polled at the loop bottom only, and only while the
-    frontier is undrained: a cooperative stop always has at least one
-    segment of progress behind it.  Between segments the carry stays on
-    the device; the loop reads only its host ints `t` and `work`.  The
-    move or build is the `carry` span of `tracer` (arg `bytes`, what it
-    uploaded), which each segment gets too.
+    `start` is the pass's `RootDeal` or a restored host carry dict
+    (CARRY_FIELDS), from which `program.start` builds the carry on the
+    device, with `packed`'s and `ctx`'s operands, in the `carry` span of
+    `tracer` (arg `bytes`, what it uploaded).  The pass then runs in
+    segments of cfg.ckpt_period supersteps; with ckpt_period 0, in one
+    segment to cfg.max_steps, and nothing below happens between segments.
+    After each segment the engine.superstep fault point fires, then
+    `on_segment` gets the device carry (the checkpoint writer, which pulls
+    it to the host with `to_fields()`) — in that order, so an injected
+    death loses the running segment's checkpoint, the harshest recovery
+    case.  `should_stop` is polled after that, and only while the frontier
+    is undrained: a cooperative stop always has at least one segment of
+    progress behind it.  Between segments the carry stays on the device;
+    the loop reads only its host ints `t` and `work`.  The terminal
+    carry's outputs are read in the `outputs` span.
 
-    Returns (carry, partial), the carry a `_Carry`.
+    Returns (`PassOutput`, partial).
     """
     from repro_torch.testing import faults
 
     with tracer.span("carry") as carry_args:
-        st = (_Carry.from_fields(carry, static[0].device) if isinstance(carry, dict)
-              else carry())
+        st = program.start(start, packed, ctx)
         if carry_args is not None:
             carry_args["bytes"] = st.h2d_bytes
+    period = cfg.ckpt_period or cfg.max_steps
     partial = False
     while st.work > 0 and st.t < cfg.max_steps:
-        t_stop = min(st.t + cfg.ckpt_period, cfg.max_steps)
-        st = dispatch(st, *static, t_stop, tracer=tracer)
+        st = program(st, min(st.t + period, cfg.max_steps), tracer=tracer)
+        if not cfg.ckpt_period:
+            break
         faults.check("engine.superstep", t=st.t)
         if on_segment is not None:
             on_segment(st)
@@ -1065,32 +1051,8 @@ def run_segments(
         ):
             partial = True
             break
-    return st, partial
-
-
-#: the carry leaves the classic program's raw output is made of
-_RAW_FIELDS = ("hist", "hist2d", "n_sig", "lam", "t", "stats", "out_occ",
-               "out_meta", "out_ptr", "trace")
-
-
-def segments_raw_output(carry):
-    """Terminal carry (a `_Carry` or a host carry dict) -> the classic
-    program's 10-tuple raw output.
-
-    The host stands in for the classic program's termination sums, in
-    numpy int32: addition mod 2^32 commutes, so the sums are bit-identical
-    to the JAX device reduction regardless of miner count or order.
-    """
-    if isinstance(carry, _Carry):
-        carry = carry.to_fields(_RAW_FIELDS)
-    g_hist = carry["hist"].sum(axis=0, dtype=np.int32)
-    g_hist2d = carry["hist2d"].sum(axis=0, dtype=np.int32)
-    g_sig = carry["n_sig"].sum(dtype=np.int32)
-    return (
-        g_hist, carry["lam"][0], carry["t"][0], carry["stats"],
-        carry["out_occ"], carry["out_meta"], carry["out_ptr"], g_sig,
-        carry["trace"], g_hist2d,
-    )
+    with tracer.span("outputs"):
+        return read_outputs(st, cfg.trace_period > 0), partial
 
 
 def postprocess_phase(
@@ -1231,7 +1193,7 @@ def mine(
     where `packed` lives, else on `device` (default: the card; without one
     it raises — pass device="cpu" to run on the CPU).
 
-    With `cfg.ckpt_period > 0` the pass runs segmented (DESIGN.md §11):
+    With `cfg.ckpt_period > 0` the pass runs in segments (DESIGN.md §11):
     `ckpt_dir` checkpoints the frontier every segment, `resume_from`
     restores the newest valid step (elastically resharded onto
     `n_miners`), and `should_stop()` polled at segment boundaries stops the
@@ -1255,44 +1217,35 @@ def mine(
     schedule = make_schedule(cfg, n_miners)
     cfg = replace(cfg, stack_cap=resolve_stack_cap(cfg, packed.m_pad, packed.w_pad,
                                                    n_miners))
-    args, ctx = make_program_args(
-        packed, n_proc=n_miners, cfg=cfg, mode=mode, alpha=alpha,
-        min_sup=min_sup, delta=delta, statistic=statistic,
+    deal, ctx = make_phase_args(
+        packed, n_proc=n_miners, cfg=cfg, stack_cap=cfg.stack_cap, mode=mode,
+        alpha=alpha, min_sup=min_sup, delta=delta, statistic=statistic,
     )
     program = build_mine_step(
         n=packed.n_pad, n_pos=packed.npos_pad, m=packed.m_pad, cfg=cfg,
         stack_cap=cfg.stack_cap, schedule=schedule, mode=mode,
         device=packed.device, statistic=statistic,
     )
-    partial = False
-    if cfg.ckpt_period > 0:
+    start, on_segment = deal, None
+    if ckpt_dir or resume_from:
         from repro_torch.ckpt import mining as ckpt_mining
 
         provenance = ckpt_mining.make_provenance(
             packed, mode=mode, statistic=statistic, alpha=alpha,
             start_sup=ctx["start_sup"], delta=delta,
         )
-        carry = ctx["carry0"]
         if resume_from:
             restored = ckpt_mining.restore_frontier(
                 resume_from, provenance=provenance, n_proc=n_miners, cfg=cfg,
                 mode=mode,
             )
             if restored is not None:
-                carry = restored
-        on_segment = None
+                start = restored
         if ckpt_dir:
-            def on_segment(c):
-                ckpt_mining.save_frontier(
-                    c.to_fields(), ckpt_dir, provenance=provenance, keep=ckpt_keep
-                )
-        carry, partial = run_segments(
-            program, carry, cfg=cfg, static=ctx["static"],
-            should_stop=should_stop, on_segment=on_segment,
-        )
-        raw = segments_raw_output(carry)
-    else:
-        raw = program(*args)
+            on_segment = ckpt_mining.frontier_writer(
+                ckpt_dir, provenance=provenance, keep=ckpt_keep)
+    raw, partial = run_segments(program, start, packed, ctx, cfg=cfg,
+                                should_stop=should_stop, on_segment=on_segment)
     return postprocess_phase(
         raw, packed=packed, n_proc=n_miners, cfg=cfg, mode=mode,
         thr=ctx["thr"], start_sup=ctx["start_sup"], delta=delta,

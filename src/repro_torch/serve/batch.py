@@ -115,8 +115,9 @@ class BatchStats:
 
 
 def _ckpt_capable(worker) -> bool:
-    """True when the worker's session runs the segmented program — the only
-    program with superstep boundaries to stop at or checkpoint from."""
+    """True when the worker's session runs passes of several segments —
+    the only passes with superstep boundaries to stop at or checkpoint
+    from."""
     return bool(getattr(getattr(worker.session, "runtime", None),
                         "ckpt_period", 0))
 

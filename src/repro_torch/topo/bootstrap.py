@@ -9,13 +9,13 @@ Three concerns:
    (core/collectives.py), and two ranks on one card cannot share NCCL.
 
 2. **Marshalling** — the engine's root deal is deterministic integer
-   work: every process derives the *identical* full argument tuple from
-   the same dataset, and `local_args` keeps the roots dealt to this
-   process's miners (the JAX `globalize_args`).  `fetch_outputs`
-   turns the program's per-process outputs back into the full ones on
-   every process — all-gathered per-miner rows, all-reduced sums — so the
-   single-process postprocess (and the ResultSet) runs unchanged and
-   identically everywhere.
+   work: every process derives the *identical* full deal from the same
+   dataset, and `RootDeal.miners` keeps the roots dealt to this process's
+   miners (the JAX `globalize_args`).  `fetch_outputs` turns a pass's
+   per-process outputs back into the full ones on every process —
+   all-gathered per-miner rows, all-reduced sums — so the single-process
+   postprocess (and the ResultSet) runs unchanged and identically
+   everywhere.
 
 3. **Testability** — `launch_local_cluster` spawns N local processes
    against a 127.0.0.1 rendezvous: each child runs a harness script with
@@ -39,7 +39,6 @@ import torch
 
 __all__ = [
     "init_distributed",
-    "local_args",
     "fetch_outputs",
     "OUTPUT_KINDS",
     "free_port",
@@ -67,33 +66,24 @@ def init_distributed(coordinator_address: str, num_processes: int,
 
 
 # ----------------------------------------------------------- marshalling
-def local_args(args, group):
-    """The classic program's argument tuple (`engine.make_phase_args`) with
-    the root deal cut to this process's miners, renumbered to its local
-    rows; everything else (the database, thresholds, scalars) is shared.
-    No group: the tuple unchanged."""
-    if group is None:
-        return tuple(args)
-    return (args[0].miners(group.lo, group.hi),) + tuple(args[1:])
-
-
-#: what each entry of the classic program's raw output is across
+#: how each of a pass's outputs (`engine.PassOutput`) combines across
 #: processes: "sum" of the processes' partial sums, "rows" of per-miner
 #: rows in rank order, or "same" on every process (lambda, supersteps)
-OUTPUT_KINDS = ("sum", "same", "same", "rows", "rows", "rows", "rows", "sum",
-                "rows", "sum")
+OUTPUT_KINDS = dict(hist="sum", lam="same", t="same", stats="rows",
+                    out_occ="rows", out_meta="rows", out_ptr="rows",
+                    n_sig="sum", trace="rows", hist2d="sum")
 
 
 def fetch_outputs(raw, group):
-    """One process's raw program output -> the full single-process raw
-    output, identical on every process.  Sums are taken in int64 and cast
-    back, so they equal the one-process sums bit for bit."""
+    """One process's `PassOutput` -> the full single-process one, identical
+    on every process.  Sums are taken in int64 and cast back, so they
+    equal the one-process sums bit for bit."""
     if group is None:
         return raw
-    out = []
-    for x, kind in zip(raw, OUTPUT_KINDS):
+    out = {}
+    for name, kind in OUTPUT_KINDS.items():
+        x = getattr(raw, name)
         if kind == "same" or x is None:
-            out.append(x)
             continue
         arr = np.asarray(x)
         t = torch.from_numpy(np.ascontiguousarray(arr).astype(np.int64))
@@ -102,8 +92,8 @@ def fetch_outputs(raw, group):
         else:
             (t,) = group.all_gather(t)
         full = t.numpy().astype(arr.dtype)
-        out.append(full if arr.ndim else full.item())
-    return tuple(out)
+        out[name] = full if arr.ndim else full.item()
+    return raw._replace(**out)
 
 
 # ------------------------------------------------------- local cluster

@@ -139,19 +139,16 @@ def _data():
 def test_single_process_has_no_group():
     assert process_group(8) is None
     assert tapi.MinerSession(8, device="cpu").group is None
-    args = (np.zeros((8, 4, 2)), np.zeros((8, 4, 4)), np.arange(8), "db")
-    assert bootstrap.local_args(args, None) == args
 
 
-def _deal_args(n_miners):
-    """The classic program's arguments for DATA (the root deal first) and
-    the packed problem."""
+def _deal(n_miners):
+    """A pass's root deal for DATA and the packed problem."""
     ds = tapi.Dataset.from_dense(*_data(), name="topo", device="cpu")
     cfg = engine.EngineConfig(**RUNTIME)
-    args, _ = engine.make_phase_args(
+    deal, _ = engine.make_phase_args(
         ds.packed, n_proc=n_miners, cfg=cfg, stack_cap=cfg.stack_cap,
         mode="count", alpha=0.05, min_sup=2, delta=0.0)
-    return args, ds.packed
+    return deal, ds.packed
 
 
 def _stacks(deal, packed):
@@ -164,13 +161,12 @@ def _stacks(deal, packed):
 def test_miner_group_blocks():
     g = MinerGroup(8, rank=1, world=2)
     assert (g.n_local, g.lo, g.hi) == (4, 4, 8)
-    args, _ = _deal_args(8)
-    local = bootstrap.local_args(args, g)
-    deal = local[0]
-    assert deal.n_proc == 4 and deal.sp.tolist() == args[0].sp[4:].tolist()
+    whole, _ = _deal(8)
+    deal = whole.miners(g.lo, g.hi)
+    assert deal.n_proc == 4 and deal.sp.tolist() == whole.sp[4:].tolist()
     assert sorted(set(deal.meta[:, 0] % 8)) == [4, 5, 6, 7]
     assert deal.miner.tolist() == (deal.meta[:, 0] % 8 - 4).tolist()
-    assert local[1:] == args[1:]
+    assert deal.stack_cap == whole.stack_cap and deal.occ0 is whole.occ0
     with pytest.raises(ValueError, match="split evenly"):
         MinerGroup(6, rank=0, world=4)
     with pytest.raises(ValueError):
@@ -181,12 +177,12 @@ def test_miner_group_blocks():
 def test_local_deal_gives_the_rows_of_the_global_stacks(world):
     """Each process's stacks, built from its block of the compact deal,
     are its miners' rows [lo, hi) of the global [P, CAP, W] stacks."""
-    args, packed = _deal_args(8)
-    whole = _stacks(args[0], packed)
-    assert whole["sp"].sum() == args[0].n_roots > 0
+    deal, packed = _deal(8)
+    whole = _stacks(deal, packed)
+    assert whole["sp"].sum() == deal.n_roots > 0
     for rank in range(world):
         g = MinerGroup(8, rank=rank, world=world)
-        local = _stacks(bootstrap.local_args(args, g)[0], packed)
+        local = _stacks(deal.miners(g.lo, g.hi), packed)
         for key in ("occ_stack", "meta", "sp"):
             np.testing.assert_array_equal(local[key], whole[key][g.lo:g.hi],
                                           err_msg=f"{key} rank {rank}")

@@ -19,7 +19,6 @@ import json
 import os
 import subprocess
 import sys
-from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -221,12 +220,12 @@ def test_root_supports_counted_once_with_the_phase_impl(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["lamp1", "count2d"])
 def test_segmented_start_carry_equals_classic_and_jax(mode, monkeypatch):
-    """The segmented program's starting carry (`make_program_args`' carry0)
-    is the classic program's, leaf for leaf, and both are the JAX
-    package's `init_carry` under `to_fields()`: the checkpoint format."""
+    """The one starting carry a pass builds (`run_segments` through the
+    program's `start`) is the JAX package's `init_carry` under
+    `to_fields()`, the checkpoint format, whatever the segment length:
+    ckpt_period 0 and 4 start from the same carry."""
     jp, tp = deal_problem()
     P, trace = 3, dict(trace_period=2, trace_cap=5)
-    cfg = teng.EngineConfig(**KW, **trace, max_steps=0)
     kw = dict(n_proc=P, mode=mode, alpha=0.05, min_sup=2, delta=1e-3)
     started = []
 
@@ -236,14 +235,16 @@ def test_segmented_start_carry_equals_classic_and_jax(mode, monkeypatch):
             started.append(self.to_fields())
 
     monkeypatch.setattr(teng, "_Carry", Seen)
-    args, ctx = teng.make_program_args(tp, cfg=cfg, **kw)
-    teng.build_mine_step(
-        n=tp.n_pad, n_pos=tp.npos_pad, m=tp.m_pad, cfg=cfg, stack_cap=cfg.stack_cap,
-        schedule=teng.make_schedule(cfg, P), mode=mode, device="cpu",
-    )(*args)
-    (classic,) = started
-    _, ctx = teng.make_program_args(tp, cfg=replace(cfg, ckpt_period=4), **kw)
-    segmented = ctx["carry0"]().to_fields()
+    for ckpt_period in (0, 4):
+        cfg = teng.EngineConfig(**KW, **trace, max_steps=0, ckpt_period=ckpt_period)
+        deal, ctx = teng.make_phase_args(tp, cfg=cfg, stack_cap=cfg.stack_cap, **kw)
+        program = teng.build_mine_step(
+            n=tp.n_pad, n_pos=tp.npos_pad, m=tp.m_pad, cfg=cfg,
+            stack_cap=cfg.stack_cap, schedule=teng.make_schedule(cfg, P), mode=mode,
+            device="cpu",
+        )
+        teng.run_segments(program, deal, tp, ctx, cfg=cfg)
+    classic, segmented = started
     jcfg = jeng.EngineConfig(**KW, **trace)
     start_sup = ctx["start_sup"]
     init = jeng.deal_roots(jp, P, jcfg, start_sup)

@@ -27,7 +27,6 @@ import repro.core.lcm as jlcm  # noqa: E402
 import repro.obs as jobs  # noqa: E402
 import repro.stats as jstats  # noqa: E402
 import repro_torch.api as tapi  # noqa: E402
-import repro_torch.core.fisher as tfisher  # noqa: E402
 import repro_torch.core.lamp as tlamp  # noqa: E402
 import repro_torch.core.lcm as tlcm  # noqa: E402
 import repro_torch.obs as tobs  # noqa: E402
@@ -304,13 +303,12 @@ def test_port_lamp_planted_and_null_data_as_jax():
         assert _lamp_fields(tlamp.lamp(db, labels)) == _lamp_fields(jlamp.lamp(db, labels))
 
 
-def test_port_phase1_state_and_fisher_shim():
-    """`Phase1State` moves lambda as JAX's does; the `core.fisher` shim
-    re-exports the port's Fisher functions."""
+def test_port_phase1_state_and_thresholds():
+    """`Phase1State` moves lambda as JAX's does, and the port's Tarone
+    count thresholds are the JAX package's."""
     a, b = tlamp.Phase1State(48, 16, 0.05), jlamp.Phase1State(48, 16, 0.05)
     for sup in [48, 30, 30, 12, 12, 12, 9, 40, 25]:
         assert a.observe(sup) == b.observe(sup)
     np.testing.assert_array_equal(a.cnt, b.cnt)
-    assert tfisher.fisher_pvalue is tstats.fisher_pvalue
-    np.testing.assert_array_equal(tfisher.lamp_count_thresholds(48, 16, 0.05),
+    np.testing.assert_array_equal(tstats.lamp_count_thresholds(48, 16, 0.05),
                                   jstats.lamp_count_thresholds(48, 16, 0.05))

@@ -128,15 +128,60 @@ def test_eager_loop_only_where_a_graph_cannot_serve():
     assert not teng.step_graphs(cuda, object(), cfg)
     assert not teng.step_graphs(cuda, None, replace(cfg, trace_period=2, trace_cap=4))
     assert teng.on_default_stream(cpu)
+    ds = datasets(cpu)[0]
     for ckpt in (0, 3):
-        prog = teng.build_mine_step(
-            n=64, n_pos=16, m=64, cfg=replace(cfg, ckpt_period=ckpt), stack_cap=512,
-            schedule=build_schedule(2, 4, 0), mode="count", device=cpu)
-        assert prog.step_graph is None
+        session = MinerSession(2, device=cpu, runtime=RuntimeConfig(ckpt_period=ckpt))
+        session.run(ds, ClosedFrequentQuery(min_sup=5))
+        m = session.metrics
+        assert m.counter("miner_superstep_replays_total").value == 0
+        assert m.counter("miner_superstep_graphs_total").value == 0
+        for entry in session._programs.values():
+            g = entry.compiled.step_graph
+            assert g.graph is None and g.carry is None and g.replays == 0
     seen = []
     assert not op_cost.counting()
     op_cost.count_costs(lambda: seen.append(op_cost.counting()))
     assert seen == [True] and not op_cost.counting()
+
+
+# ------------------------------------------------------- the step leaves
+@pytest.mark.parametrize("mode", ["lamp1", "count", "test", "count2d"])
+def test_a_superstep_writes_only_the_step_leaves(mode):
+    """The eager superstep, run on a shallow copy of a pass's carry (three
+    times, each on a copy of the last), rebinds or changes only leaves
+    `CARRY_LEAVES` marks as written by a step: the leaves a graph replay
+    keeps at fixed addresses.  Outside
+    that set are only the trace ring and the host ints `t` and `work`."""
+    assert set(teng.CARRY_FIELDS) - set(teng.STEP_FIELDS) == {"trace", "t", "work"}
+    db, labels, _ = generate(SyntheticSpec("leaves", 40, 60, 0.3, 20, 2, seed=1))
+    packed = teng.pack_problem(db, labels, device="cpu")
+    P = 5
+    cfg = teng.EngineConfig(expand_batch=2, stack_cap=256, steal_max=4, push_cap=64,
+                            out_cap=64, sync_period=1)
+    deal, ctx = teng.make_phase_args(packed, n_proc=P, cfg=cfg, stack_cap=cfg.stack_cap,
+                                     mode=mode, alpha=0.5, min_sup=2, delta=0.5)
+    program = teng.build_mine_step(
+        n=packed.n_pad, n_pos=packed.npos_pad, m=packed.m_pad, cfg=cfg,
+        stack_cap=cfg.stack_cap, schedule=build_schedule(P, 4, 0), mode=mode,
+        device="cpu")
+    carry = program.start(deal, packed, ctx)
+    written = set()
+    for t in range(1, 4):   # the roots' closed sets are counted a step late
+        before = {k: getattr(carry, k).clone() for k in teng.CARRY_FIELDS
+                  if isinstance(getattr(carry, k), torch.Tensor)}
+        view = copy.copy(carry)
+        assert program(view, t) is view and view.t == t
+        written |= {k for k, x in before.items()
+                    if getattr(view, k) is not getattr(carry, k)
+                    or not torch.equal(getattr(carry, k), x)}
+        carry = view
+    assert written <= set(teng.STEP_FIELDS)
+    # the steps did work: they popped, counted and pushed on every mode's path
+    assert {"occ_stack", "meta", "sp", "hist", "stats"} <= written
+    assert ({"lamp1": {"hist_snap", "g_hist_acc"}, "count": set(),
+             "test": {"out_occ", "out_meta", "out_ptr", "n_sig"},
+             "count2d": {"hist2d", "out_occ", "out_meta", "out_ptr"}}[mode]
+            <= written)
 
 
 # ------------------------------------------------------- launch counters
