@@ -741,7 +741,8 @@ class MinerSession:
         lost at out_cap stay counted as the widened gate decided them; the
         ResultSet flags them (`n_dropped`).  The `refilter` span carries
         `emitted`, `kept` and `band`, the records emitted above delta,
-        which `miner_gate_band_records_total` adds up."""
+        which `miner_gate_band_records_total` adds up, and `distinct`, the
+        distinct (support, positive support) pairs among the emitted."""
         n, n_pos = dataset.n_transactions, dataset.n_pos
         with self.tracer.span("refilter") as args:
             emitted = len(out.sig_sup)
@@ -750,7 +751,10 @@ class MinerSession:
             keep = pvalues <= delta
             kept = int(keep.sum())
             if args is not None:
-                args.update(emitted=emitted, kept=kept, band=emitted - kept)
+                distinct = len(np.unique(out.sig_sup.astype(np.int64) * (n_pos + 1)
+                                         + out.sig_pos_sup))
+                args.update(emitted=emitted, kept=kept, band=emitted - kept,
+                            distinct=distinct)
         if emitted > kept:
             self._m_gate_band.inc(emitted - kept)
         return replace(out, sig_occ=out.sig_occ[keep], sig_core=out.sig_core[keep],

@@ -6,14 +6,17 @@ Counterpart of `repro.stats.fisher` (paper §3.1-3.2):
 
   f(x) = C(N_pos, n*) C(N - N_pos, x - n*) / C(N, x),  n* = min(x, N_pos)
 
-The host float64 functions are copies of the JAX package's (numpy/scipy),
-so every reported P-value is bit-identical.  The device P-value is torch
+The host float64 functions compute what the JAX package's (numpy/scipy)
+do in the same order of operations, so every reported P-value is
+bit-identical.  The device P-value is torch
 float32 with `torch.lgamma`, in the JAX version's order of operations; its
 `lgamma` differs from JAX's `gammaln` in the last bits, which can move an
 emission decision only for a P-value within float32 error of the gate.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -44,29 +47,67 @@ def log_comb(n, k):
     return np.where(valid, out, -np.inf)
 
 
+@functools.lru_cache(maxsize=16)
+def _log_factorials(N: int) -> np.ndarray:
+    """lf[i] = log i! = gammaln(i + 1) for i = 0..N in float64: built once
+    per N and read-only, so every caller (and thread) shares it."""
+    from scipy.special import gammaln  # host-side only
+
+    lf = gammaln(np.arange(N + 1, dtype=np.float64) + 1.0)
+    lf.setflags(write=False)
+    return lf
+
+
+def _log_comb_row(lf: np.ndarray, a: int, pad: int) -> np.ndarray:
+    """log C(a, k) for k = -pad..a+pad, in `log_comb`'s order of operations,
+    and -inf outside 0 <= k <= a."""
+    k = np.arange(a + 1)
+    row = np.full(a + 1 + 2 * pad, -np.inf)
+    row[pad:pad + a + 1] = lf[a] - lf[k] - lf[a - k]
+    return row
+
+
 def fisher_pvalue(x, n, N, N_pos):
     """One-sided (enrichment) Fisher exact P-value.
 
     x: total support of the itemset; n: support within positives.
     Returns P[#positives >= n | margins] under the hypergeometric null.
     Vectorized over x, n (same shape).
+
+    Each distinct (x, n) pair is evaluated once, its log-binomial terms
+    gathered from a per-N log-factorial table, and scattered back in the
+    input's order.  The [pairs, K] matrix keeps the JAX version's columns
+    (K = min(max x, N_pos) + 1 over the batch), -inf mask and row
+    reductions, so every P-value equals that version's bit for bit.
     """
     x = np.atleast_1d(np.asarray(x, dtype=np.int64))
     n = np.atleast_1d(np.asarray(n, dtype=np.int64))
-    hi = np.minimum(x, N_pos)  # [B]
-    max_hi = int(hi.max()) if hi.size else 0
-    ni = np.arange(max_hi + 1)[None, :]  # [1, K]
+    if not x.size:
+        return np.zeros(x.shape)
+    # each distinct pair once: key (x, n) on the batch's own n range
+    x0, n0 = x.min(), n.min()
+    span = n.max() - n0 + 1
+    keys, inv = np.unique((x - x0) * span + (n - n0), return_inverse=True)
+    x, n = keys // span + x0, keys % span + n0
+    hi = np.minimum(x, N_pos)  # [U]
+    K = int(hi.max()) + 1
+    ni = np.arange(K)[None, :]  # [1, K]
     mask = (ni >= n[:, None]) & (ni <= hi[:, None])
-    logp = (
-        log_comb(N_pos, ni)
-        + log_comb(N - N_pos, x[:, None] - ni)
-        - log_comb(N, x)[:, None]
-    )
+    lf = _log_factorials(int(N))
+    # log C(N_pos, j) + log C(N - N_pos, x_u - j) - log C(N, x_u); row u of
+    # the middle term (j = 0..K-1) is a window of its reversed row, padded
+    # with K -inf on each side
+    neg = _log_comb_row(lf, int(N - N_pos), K)
+    windows = np.lib.stride_tricks.sliding_window_view(neg[::-1], K)
+    logp = windows[len(neg) - 1 - K - np.clip(x, -1, N - N_pos + K)]
+    logp += _log_comb_row(lf, int(N_pos), 0)[:K]
+    logp -= _log_comb_row(lf, int(N), 1)[np.clip(x, -1, N + 1) + 1][:, None]
     logp = np.where(mask, logp, -np.inf)
     m = np.max(logp, axis=1, keepdims=True)
     m = np.where(np.isfinite(m), m, 0.0)
-    p = np.exp(m[:, 0]) * np.sum(np.exp(logp - m), axis=1)
-    return np.clip(p, 0.0, 1.0)
+    logp -= m
+    p = np.exp(m[:, 0]) * np.sum(np.exp(logp, out=logp), axis=1)
+    return np.clip(p, 0.0, 1.0)[inv]
 
 
 def min_attainable_pvalue(x, N, N_pos):

@@ -151,6 +151,15 @@ def test_refilter_span_and_counter(long_data, at_05):
     assert np.all(p <= rep.delta)
     text = s.metrics.expose_text()
     assert f"miner_gate_band_records_total {a['band']}" in text
+    # `distinct` counts the (sup, pos_sup) pairs among the emitted records:
+    # the test pass again, on a session of its own, without the host decision
+    emitted = session(8).run_phase(ds, "test", min_sup=rep.min_sup, delta=rep.delta,
+                                   alpha=0.05, statistic="fisher",
+                                   band=gate_rtol(ds.n_transactions)).output
+    assert len(emitted.sig_sup) == a["emitted"]
+    pairs = set(zip(emitted.sig_sup.tolist(), emitted.sig_pos_sup.tolist()))
+    assert a["distinct"] == len(pairs) <= a["emitted"]
+    assert a["distinct"] >= len(set(zip(out.sig_sup.tolist(), out.sig_pos_sup.tolist())))
 
 
 def test_soft_stop_in_the_test_pass_is_decided_on_the_host(long_data, at_05, tmp_path):

@@ -138,6 +138,45 @@ def test_host_pvalues_and_thresholds_bit_equal(statistic, margins):
                                       js.count_thresholds(N, N_pos, alpha))
 
 
+def _fisher_batch(kind, N, N_pos):
+    """(x, n) for `test_fisher_pvalue_batches_bit_equal`: a few thousand
+    valid cells drawn from ~150 with heavy repetition, in shuffled order;
+    2,000 distinct cells; the root's scalar (N, N_pos); or nothing."""
+    rng = np.random.default_rng(7)
+    if kind == "scalar":
+        return N, N_pos
+    if kind == "empty":
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    # supports over the whole range and up to 2 N_pos; n anywhere in its range
+    x = np.concatenate([rng.integers(0, N + 1, 3000),
+                        rng.integers(0, min(N, 2 * N_pos) + 1, 3000)])
+    lo, hi = np.maximum(0, x - (N - N_pos)), np.minimum(x, N_pos)
+    n = lo + (rng.random(x.size) * (hi - lo + 1)).astype(np.int64)
+    _, first = np.unique(x * (N_pos + 1) + n, return_index=True)
+    x, n = x[np.sort(first)][:2000], n[np.sort(first)][:2000]
+    if kind == "repeated":
+        pick = rng.integers(0, 150, 4000)
+        x, n = x[pick], n[pick]
+    return x, n
+
+
+@pytest.mark.parametrize("kind", ["repeated", "distinct", "scalar", "empty"])
+@pytest.mark.parametrize("margins", [(12773, 1129), (364, 176)])
+def test_fisher_pvalue_batches_bit_equal(kind, margins):
+    """The port's Fisher P-value evaluates each distinct (x, n) pair once,
+    from log-binomial tables, and scatters back in the input's order: it
+    equals the JAX package's, which builds the whole matrix, bit for bit,
+    at `mcf7`'s margins and at alz_rec_30's."""
+    N, N_pos = margins
+    x, n = _fisher_batch(kind, N, N_pos)
+    got = tstats.get_statistic("fisher").pvalue(x, n, N, N_pos)
+    want = jstats.get_statistic("fisher").pvalue(x, n, N, N_pos)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if kind == "repeated":
+        assert len(set(zip(x.tolist(), n.tolist()))) <= 150 < len(x)
+
+
 @pytest.mark.parametrize("statistic", ["fisher", "chi2"])
 @pytest.mark.parametrize("margins", [(48, 16), (697, 105), (364, 176)])
 def test_device_pvalues_within_float32_tolerance(statistic, margins):
