@@ -1,12 +1,16 @@
 """One run of one cell: set-up, the measured window, the check, the result.
 
-Two drivers, named by the traffic mix's `driver`:
+Three drivers, named by the traffic mix's `driver`:
 
 - "session": one caller runs the requests back to back on one warm
   `repro_torch.api.MinerSession`, each ending in a synchronise;
 - "served": a `repro_torch.serve.MiningService` of `fleet` sessions on the
   card, warmed before traffic, driven closed loop by `clients` callers,
-  each submitting its next request when the last one resolved.
+  each submitting its next request when the last one resolved;
+- "cluster": the session driver's loop as rank 0 of a gloo group of
+  `processes` ranks, one to a card (`harness/cluster.py`): every rank runs
+  each request in lockstep on its own session, which holds its block of
+  the miners, and rank 0 times the window.
 
 Set-up (`setup_s`) runs from the process's start to the first timed
 request: imports, CUDA, loading (or first building) the kernel, making and
@@ -33,6 +37,7 @@ import sys
 import time
 
 from . import data, judge, profile
+from .cluster import Leader
 from .queries import answer_of, program_query, reference_answer, warmup_spec
 from .spec import Cell, load_metric
 from .stats import percentile
@@ -149,7 +154,11 @@ def _runtime(cell: Cell):
 
 
 # ------------------------------------------------------------------ session
-def _drive_session(cell: Cell, datasets, queries, seconds, trace, device, t_start):
+def _drive_session(cell: Cell, datasets, queries, seconds, trace, device, t_start,
+                   announce=None):
+    """The session driver's loop; `announce(i)`, where given, is called
+    before request i runs (the warm one too), and `announce(-1)` is left
+    to the caller after the window."""
     from repro_torch.api import MinerSession
     from repro_torch.kernels.support_count import kernel
     from repro_torch.obs import SpanTracer
@@ -160,7 +169,10 @@ def _drive_session(cell: Cell, datasets, queries, seconds, trace, device, t_star
     tracer = SpanTracer(torch_profiler=bool(trace))
     session = MinerSession(int(cell.config["layout"]["miners"]), device=device,
                            runtime=_runtime(cell), tracer=tracer)
+    group = session.group       # a cluster rank's block of the miners, else None
     d, q = data.request(traffic, 0)
+    if announce is not None:
+        announce(0)
     session.run(datasets[d], queries[q])
     sync()
     if trace:
@@ -172,6 +184,7 @@ def _drive_session(cell: Cell, datasets, queries, seconds, trace, device, t_star
     stage = "before"            # before -> device -> host -> after (traced runs)
     dev_start = 0
     done = []                   # (key, report, wall_s, stage)
+    collective_s = []           # rank 0's seconds in the group's collectives, a request
     spans = []
     t0 = time.perf_counter()
     deadline = t0 + seconds
@@ -188,11 +201,16 @@ def _drive_session(cell: Cell, datasets, queries, seconds, trace, device, t_star
             prof_host.start()
             stage = "host"
         d, q = data.request(traffic, i)
+        c0 = group.seconds if group is not None else None
         t = time.perf_counter()
+        if announce is not None:
+            announce(i)
         report = session.run(datasets[d], queries[q])
         sync()
         t_done = time.perf_counter()
         done.append(((d, q), report, t_done - t, stage))
+        if group is not None:
+            collective_s.append(group.seconds - c0)
         if trace:
             spans.append(tracer.events())
         tracer.clear()
@@ -222,10 +240,12 @@ def _drive_session(cell: Cell, datasets, queries, seconds, trace, device, t_star
     tr = None
     if trace:
         tr = Trace(driver="session")
-        for (key, rep, wall, st), ev in zip(done, spans):
+        for j, ((key, rep, wall, st), ev) in enumerate(zip(done, spans)):
             if st in ("before", "after"):
                 tr.requests.append(dict(wall_s=wall, spans=ev,
                                         supersteps=sum(p.supersteps for p in rep.phases)))
+                if collective_s:
+                    tr.requests[-1]["collective_s"] = collective_s[j]
         if prof_dev is not None and prof_dev.window_s:
             in_dev = [rep for _, rep, _, st in done[dev_start:] if st == "device"]
             layout = cell.config["layout"]
@@ -239,6 +259,20 @@ def _drive_session(cell: Cell, datasets, queries, seconds, trace, device, t_star
                              for sp in prof_host.spans_on_timeline(ev, epoch_ns)]
     del session
     return e2e, answers, 0, len(done), info, tr
+
+
+def _drive_cluster(leader, cell: Cell, datasets, queries, seconds, trace, device, t_start):
+    """The session driver's loop as rank 0 of the cell's group, whose
+    followers `leader` started; `info` gains `ranks`, every rank's report
+    (`Leader.finish`)."""
+    import torch
+
+    leader.join_group(t_start)
+    out = _drive_session(cell, datasets, queries, seconds, trace, device, t_start,
+                         announce=leader.announce)
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    out[4]["ranks"] = leader.finish(peak)
+    return out
 
 
 # ------------------------------------------------------------------- served
@@ -304,17 +338,20 @@ async def _serve(cell: Cell, datasets, queries, seconds, trace, device, t_start)
     ok = [x for x in done if x[1] is not None and x[1].ok]
     window = t_end - t0
     lat = [x[2] if (x[1] is not None and x[1].ok) else window for x in done]
-    e2e = {"served_qps": len(ok) / window, "served_p95_s": percentile(lat, 95),
-           "setup_s": setup_s}
+    e2e = {"served_qps": len(ok) / window, "setup_s": setup_s}
     answers = [(key, res.report) for key, res, _, _ in ok]
     cold = sum(1 for _, res, _, _ in ok if res.report.cold)
-    info = dict(requests=len(done), ok=len(ok), window_s=window, compiled_in_window=cold)
+    by_key: dict = {}
+    for key, _, lat_s, _ in done:
+        by_key.setdefault(key, []).append(round(lat_s, 4))
+    info = dict(requests=len(done), ok=len(ok), window_s=window, compiled_in_window=cold,
+                walls=by_key)
     tr = None
     if trace:
         tr = Trace(driver="served")
         tr.served = [dict(ok=bool(res is not None and res.ok),
                           queued_s=res.queued_s if res is not None else None, total_s=lat_s)
-                     for _, res, lat_s, _ in done]
+                     for (_, res, _, _), lat_s in zip(done, lat)]
         if "device" in profs:
             tr.device = dict(prof=profs["device"], launch_shapes=None, supersteps=None,
                              nodes=None, expand_rows=None)
@@ -367,22 +404,35 @@ def run_cell(cell: Cell, *, seed: int, seconds: float, trace: bool, device,
     from repro_torch.device import resolve_device
 
     device = resolve_device(device)
-    inputs = data.make_inputs(cell.config, cell.traffic, seed)
-    datasets = _datasets(cell, inputs, device)
-    queries = [program_query(cell.config, p) for p in cell.traffic["params"]]
     driver = cell.traffic["driver"]
-    if driver == "session":
-        out = _drive_session(cell, datasets, queries, seconds, trace, device, t_start)
-    elif driver == "served":
-        out = asyncio.run(_serve(cell, datasets, queries, seconds, trace, device, t_start))
-    else:
-        raise ValueError(f"unknown driver {driver!r}")
+    leader = None
+    if driver == "cluster":     # the followers start while this process makes its inputs
+        leader = Leader(cell, seed, device)
+        leader.start()
+    try:
+        inputs = data.make_inputs(cell.config, cell.traffic, seed)
+        datasets = _datasets(cell, inputs, device)
+        queries = [program_query(cell.config, p) for p in cell.traffic["params"]]
+        if driver == "session":
+            out = _drive_session(cell, datasets, queries, seconds, trace, device, t_start)
+        elif driver == "served":
+            out = asyncio.run(_serve(cell, datasets, queries, seconds, trace, device, t_start))
+        elif driver == "cluster":
+            out = _drive_cluster(leader, cell, datasets, queries, seconds, trace, device,
+                                 t_start)
+        else:
+            raise ValueError(f"unknown driver {driver!r}")
+    finally:
+        if leader is not None:
+            leader.close()
     e2e, reports, unanswered, attempted, info, tr = out
     _log(f"window: {info}")
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-        peak = int(torch.cuda.max_memory_allocated(device))
+        # the fullest card's peak, of every rank in a cluster
+        peak = max([int(torch.cuda.max_memory_allocated(device))]
+                   + [r["peak"] for r in info.get("ranks", [])])
         dev = dict(platform="gpu", kind=torch.cuda.get_device_name(device),
                    count=int(cell.chips), memory_peak_bytes=peak)
     else:

@@ -23,7 +23,9 @@ class Trace:
     #: "supersteps", "nodes" (popped), "expand_rows" (EXPAND's batch)}
     #: (the last four None where requests overlap), or None
     device: dict | None = None
-    #: served requests of the window: {"ok", "queued_s", "total_s"}
+    #: served requests of the window: {"ok", "queued_s", "total_s"}, where
+    #: `total_s` runs from submission to resolution, and a failed request's
+    #: is the whole window
     served: list = field(default_factory=list)
     #: the datasets' exact sizes: {"items", "words", "transactions"}
     dims: dict = field(default_factory=dict)
