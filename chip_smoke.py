@@ -12,8 +12,8 @@ run on any error (each prints its wall time):
    checkout's source (into build/repro_torch/);
 3. kernel vs plain: the kernel must equal the plain PyTorch version bit for
    bit at the engine's shapes (exact and as the session's shape buckets pad
-   them; mcf7's LAMP query at 512 words among them), the reconstruction's
-   and ragged shapes, crossing every fragment
+   them; mcf7's LAMP query at 512 words and alz_dom_5's at 65,536 items
+   among them), the reconstruction's and ragged shapes, crossing every fragment
    and tile edge of the MMA kernel; each shape is timed beside its bound
    and beside one PyTorch matmul on operands unpacked to {0, 1}
    beforehand (`torch._int_mm` where B > 16, else a float16 or float32
@@ -1608,11 +1608,17 @@ def main() -> int:
     # (12,773 transactions, W = 512 words, the first shapes where the
     # operations term of the bound wins): EXPAND at P = 8 x 128, a full
     # reconstruction chunk, the last chunks at alpha 0.05 / 0.01 / 0.001
-    # (6,343 / 5,614 / 4,753 records) and the root's supports
+    # (6,343 / 5,614 / 4,753 records) and the root's supports; alz_dom_5's
+    # LAMP query (44,052 items in the 65,536-item bucket, W = 16): EXPAND at
+    # P = 8 x 64, which is also a full reconstruction chunk, the last chunks
+    # at alpha 0.05 / 0.01 / 0.001 (1,473 / 996 / 714 records) and the
+    # root's supports
     bucket_shapes = [(128, 2048, 32), (512, 2048, 32), (128, 16384, 32),
                      (128, 262144, 16), (1, 2048, 32), (1, 262144, 16),
                      (1024, 512, 512), (512, 512, 512), (199, 512, 512),
-                     (494, 512, 512), (145, 512, 512), (1, 512, 512)]
+                     (494, 512, 512), (145, 512, 512), (1, 512, 512),
+                     (512, 65536, 16), (449, 65536, 16), (484, 65536, 16),
+                     (202, 65536, 16), (1, 65536, 16)]
     main_shapes = [(128, 1191, 22), (512, 1191, 22)]       # exact shapes
     # (1024, 11916, 22): as 11,914 items, but every row of S starts on a
     # 16-byte boundary

@@ -68,6 +68,7 @@ from repro_torch.core.engine import (
     postprocess_phase,
     run_segments,
 )
+from repro_torch.core.stats import Stat
 from repro_torch.device import resolve_device
 from repro_torch.obs import MetricsRegistry, SpanTracer
 from repro_torch.stats import gate_rtol, get_statistic
@@ -464,7 +465,7 @@ class MinerSession:
             entry, hit = self._program(mode, dataset.bucket, cfg, stat_key)
             graph = entry.compiled.step_graph
             seen = (graph.replays, graph.graphs)
-            with self.tracer.span("dispatch", cache_hit=hit):
+            with self.tracer.span("dispatch", cache_hit=hit) as dispatch_args:
                 start, on_segment = deal, None
                 if cfg.ckpt_period > 0:
                     start, on_segment, resumed = self._checkpoints(
@@ -480,6 +481,16 @@ class MinerSession:
                     # every process gathers the same full outputs, so
                     # postprocess (and the ResultSet) is identical everywhere
                     raw = bootstrap.fetch_outputs(raw, self.group)
+                if dispatch_args is not None:
+                    # the candidate pass's work, from the outputs already
+                    # on the host: nodes popped, and the [rows, items]
+                    # cells one superstep scans
+                    dispatch_args.update(
+                        popped=int(raw.stats[:, Stat.POPPED].sum()),
+                        supersteps=int(raw.t),
+                        rows=self.n_miners * cfg.expand_batch,
+                        items=dataset.bucket.items,
+                    )
             self._m_replays.inc(graph.replays - seen[0])
             self._m_graphs.inc(graph.graphs - seen[1])
             with self.tracer.span("postprocess"):

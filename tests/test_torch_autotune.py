@@ -25,7 +25,8 @@ PERF_SHAPES = [
     (10, 2048, 32), (128, 16384, 32), (204, 16384, 32), (128, 262144, 16),
     (64, 262144, 16), (295, 262144, 16), (128, 12288, 22), (128, 253952, 12),
     (128, 1191, 22), (512, 1191, 22), (512, 11914, 22), (1024, 11914, 22),
-    (1024, 11916, 22),
+    (1024, 11916, 22), (512, 65536, 16), (449, 65536, 16), (484, 65536, 16),
+    (202, 65536, 16), (1, 65536, 16),
 ] + [(b, 2048, 32) for b in (18, 43, 74, 217, 247, 250, 267, 268, 322, 341,
                               367, 404, 420, 437)]
 
